@@ -1,0 +1,123 @@
+"""The FP Givens rotation unit (paper Fig. 1), torch port of
+`repro.core.givens`: input converter + sigma-reusing CORDIC + output
+converter, on packed int64 words.
+
+  vector(x, y)            -> (r, y0, state)   # vectoring: compute the angle
+  rotate(x, y, state)     -> (x', y')         # rotation: replay the angle
+
+Both are vectorized over any batch shape; `rotate` broadcasts one state over
+a trailing axis of row elements.  The complex methods of the JAX unit come
+with the complex datapath (ROADMAP A9).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import converters as conv
+from . import cordic
+from .formats import (FloatFormat, SINGLE, encode_hub, encode_ieee,
+                      decode_hub, decode_ieee)
+
+__all__ = ["GivensConfig", "GivensUnit"]
+
+
+@dataclasses.dataclass(frozen=True)
+class GivensConfig:
+    """Implementation parameters of the unit (paper Sec. 5 sweep space)."""
+
+    fmt: FloatFormat = SINGLE
+    n: int = 26                 # internal significand width N
+    iters: int | None = None    # CORDIC micro-rotations; None -> paper default
+    hub: bool = False           # conventional (IEEE-like) vs HUB datapath
+    input_rounding: str = "trunc"   # IEEE input converter: 'rne' | 'trunc'
+    unbiased: bool = True           # HUB converters: unbiased extension
+    detect_identity: bool = True    # HUB input converter: detect exact 1.0
+
+    def default_iters(self) -> int:
+        # Fig. 9: conventional peaks at N-3 micro-rotations, HUB at N-2.
+        return self.n - 2 if self.hub else self.n - 3
+
+    def resolved_iters(self) -> int:
+        return self.default_iters() if self.iters is None else self.iters
+
+    def validate(self):
+        if self.n < self.fmt.man_bits + 2:
+            raise ValueError("need N >= man_bits + 2 for a lossless expand")
+        if self.n + 3 > 53:
+            raise ValueError("bit-accurate emulation supports N <= 50 "
+                             "(int64 lanes + exact float64 ilog2)")
+        if self.input_rounding not in ("rne", "trunc"):
+            raise ValueError(self.input_rounding)
+
+
+class GivensUnit:
+    """Bit-accurate facade over the converter + CORDIC pipeline (Fig. 1).
+
+    All methods operate on *packed* FP words (int64 tensors with the
+    ``[sign | exponent | mantissa]`` layout of ``cfg.fmt``), on any device
+    and batch shape.  The CUDA kernel `kernels/csrc/qr_packed.cu` runs the
+    same dataflow per element; this class is its plain PyTorch version.
+    """
+
+    def __init__(self, config: GivensConfig):
+        config.validate()
+        self.cfg = config
+
+    def encode(self, x):
+        """float tensor -> int64 packed words of ``cfg.fmt`` (IEEE or HUB)."""
+        f = encode_hub if self.cfg.hub else encode_ieee
+        return f(x, self.cfg.fmt)
+
+    def decode(self, packed):
+        """int64 packed words -> float64 values (packed-zero -> ±0.0)."""
+        f = decode_hub if self.cfg.hub else decode_ieee
+        return f(packed, self.cfg.fmt)
+
+    def _to_fixed(self, xp, yp, N):
+        if self.cfg.hub:
+            return conv.input_convert_hub(
+                xp, yp, self.cfg.fmt, N,
+                unbiased=self.cfg.unbiased,
+                detect_identity=self.cfg.detect_identity)
+        return conv.input_convert_ieee(
+            xp, yp, self.cfg.fmt, N, rounding=self.cfg.input_rounding)
+
+    def _to_float(self, v, m_exp, N):
+        if self.cfg.hub:
+            return conv.output_convert_hub(
+                v, m_exp, self.cfg.fmt, N, unbiased=self.cfg.unbiased)
+        return conv.output_convert_ieee(v, m_exp, self.cfg.fmt, N)
+
+    def vector(self, xp, yp):
+        """Vectoring on the leading pair -> ``(r_packed, y_packed, (flip, sigmas))``."""
+        N, iters = self.cfg.n, self.cfg.resolved_iters()
+        xf, yf, m_exp = self._to_fixed(xp, yp, N)
+        xr, yr, flip, sig = cordic.vectoring(xf, yf, iters, self.cfg.hub)
+        xr, yr = cordic.apply_gain(xr, yr, iters, N + 2, self.cfg.hub)
+        return (self._to_float(xr, m_exp, N),
+                self._to_float(yr, m_exp, N),
+                (flip, sig))
+
+    def rotate(self, xp, yp, state):
+        """Replay ``state = (flip, sigmas)`` on another element pair."""
+        N, iters = self.cfg.n, self.cfg.resolved_iters()
+        flip, sig = state
+        xf, yf, m_exp = self._to_fixed(xp, yp, N)
+        xr, yr = cordic.rotation(xf, yf, flip, sig, iters, self.cfg.hub)
+        xr, yr = cordic.apply_gain(xr, yr, iters, N + 2, self.cfg.hub)
+        return (self._to_float(xr, m_exp, N),
+                self._to_float(yr, m_exp, N))
+
+    def rotate_rows(self, row_x, row_y):
+        """Full Givens rotation of two packed rows (..., e).
+
+        Vectoring on element 0, rotation broadcast over elements 1..e-1.
+        Returns the rotated rows; row_y[..., 0] is the (near-)zeroed entry.
+        """
+        rx0, ry0, (flip, sig) = self.vector(row_x[..., 0], row_y[..., 0])
+        rx, ry = self.rotate(row_x[..., 1:], row_y[..., 1:],
+                             (flip[..., None], sig[..., None]))
+        return (torch.cat([rx0[..., None], rx], dim=-1),
+                torch.cat([ry0[..., None], ry], dim=-1))

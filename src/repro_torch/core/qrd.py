@@ -1,0 +1,133 @@
+"""QR decomposition routines on the Givens rotation unit (torch port of the
+`repro.core.qrd` pieces on the main path).
+
+An m x n input is triangularized by the column-major Givens schedule, and
+Q is obtained by augmenting the rows with the identity (the 1.0 entries of
+I enter the unit as data).  Two routines, bit-identical to each other and to
+`repro.core.qrd`:
+
+  `qr_cordic`         the host loop: the plain PyTorch version of the kernel
+  `qr_cordic_pallas`  the kernel: every schedule step on one resident tile
+                      (`repro_torch.kernels.ops.qr_packed`)
+
+The name ``cordic_pallas`` is kept so configurations carry over between
+the two packages; on the GPU it is the CUDA kernel `csrc/qr_packed.cu`.
+"""
+from __future__ import annotations
+
+from functools import lru_cache
+
+import torch
+
+from .givens import GivensUnit
+
+__all__ = ["qr_cordic", "qr_cordic_pallas", "givens_schedule",
+           "sameh_kuck_schedule"]
+
+#: Bound on the host-side schedule memoization.
+SCHEDULE_CACHE_SIZE = 128
+
+
+@lru_cache(maxsize=SCHEDULE_CACHE_SIZE)
+def givens_schedule(m: int, n: int):
+    """Column-major zeroing order for an m x n matrix (memoized).
+
+    ``(pivot_row, target_row, col)`` triples: entry ``(target_row, col)`` is
+    annihilated against the diagonal row ``col``, one column at a time.
+    """
+    return tuple((k, j, k)
+                 for k in range(min(m - 1, n))
+                 for j in range(k + 1, m))
+
+
+@lru_cache(maxsize=SCHEDULE_CACHE_SIZE)
+def sameh_kuck_schedule(m: int, n: int):
+    """Sameh–Kuck parallel pairing schedule [Sameh & Kuck, JACM 1978].
+
+    Entry ``(r, c)`` is annihilated against the adjacent row ``r - 1`` at
+    stage ``(m - 1 - r) + 2 c``; rotations within a stage touch disjoint row
+    pairs.  One inner tuple of ``(pivot_row, target_row, col)`` per stage;
+    any flattening of the stage order gives identical results.
+    """
+    stages: dict[int, list] = {}
+    for c in range(min(m - 1, n)):
+        for r in range(m - 1, c, -1):
+            stages.setdefault((m - 1 - r) + 2 * c, []).append((r - 1, r, c))
+    return tuple(tuple(stages[t]) for t in sorted(stages))
+
+
+def _split_qr(out, m, n, compute_q):
+    """Split a decoded working matrix [R' | Qt] and force R's structure."""
+    R = out[..., :n]
+    tri = torch.tril(torch.ones((m, n), dtype=torch.bool, device=out.device), -1)
+    R = torch.where(tri, 0.0, R)
+    if not compute_q:
+        return None, R
+    Q = out[..., n:].transpose(-1, -2)
+    return Q, R
+
+
+def _augment(A, compute_q):
+    """Append the identity columns: rows of e = n + m elements (or e = n)."""
+    if not compute_q:
+        return A
+    m = A.shape[-2]
+    eye = torch.eye(m, dtype=torch.float64, device=A.device)
+    return torch.cat([A, eye.expand(A.shape[:-1] + (m,))], dim=-1)
+
+
+def _packed_qr(A, unit: GivensUnit, compute_q, steps, run):
+    A = torch.as_tensor(A, dtype=torch.float64)
+    m, n = A.shape[-2], A.shape[-1]
+    P = unit.encode(_augment(A, compute_q))
+    if steps is None:
+        steps = givens_schedule(m, n)
+    out = unit.decode(run(P, tuple(steps)))
+    return _split_qr(out, m, n, compute_q)
+
+
+def qr_cordic(A, unit: GivensUnit, compute_q=True, steps=None):
+    """QRD of a batch of matrices with the paper's unit (host loop).
+
+    Runs `repro_torch.kernels.qrd_blocked.qr_packed_reference`, the plain
+    PyTorch version of the kernel, on whatever device ``A`` lies.
+
+    Parameters
+    ----------
+    A : (..., m, n) tensor or array_like, converted to float64.
+    unit : GivensUnit — the configured rotator (IEEE or HUB datapath).
+    compute_q : bool — augment the rows with the identity to accumulate Qᵀ.
+    steps : sequence[(int, int, int)], optional — defaults to column-major.
+
+    Returns
+    -------
+    (Q, R) : float64 tensors (Q is None when ``compute_q=False``), with R's
+    structural zeros forced.
+    """
+    from repro_torch.kernels.qrd_blocked import qr_packed_reference
+
+    def run(P, steps):
+        m, e = P.shape[-2:]
+        out = qr_packed_reference(P.reshape((-1, m, e)), cfg=unit.cfg,
+                                  steps=steps)
+        return out.reshape(P.shape)
+    return _packed_qr(A, unit, compute_q, steps, run)
+
+
+def qr_cordic_pallas(A, unit: GivensUnit, compute_q=True, steps=None,
+                     tile_b=None):
+    """Kernel-resident QRD: the whole triangularization in one kernel launch.
+
+    Semantically `qr_cordic` with the loop inside the kernel: the working
+    tile stays in shared memory across all schedule steps.  (Q, R) are
+    bit-identical to `qr_cordic`.  On a CUDA tensor this launches the CUDA
+    kernel; on a CPU tensor it runs the kernel's plain PyTorch version.
+
+    ``tile_b`` is the number of matrices one CUDA block factorizes (None:
+    `repro_torch.kernels.qrd_blocked.TILE_B`).
+    """
+    from repro_torch.kernels import ops
+
+    def run(P, steps):
+        return ops.qr_packed(P, cfg=unit.cfg, steps=steps, tile_b=tile_b)
+    return _packed_qr(A, unit, compute_q, steps, run)

@@ -1,0 +1,26 @@
+"""repro_torch.qrd — the QRD API of the port (mirrors `repro.qrd`).
+
+* `QRDConfig` — one config for backend, schedule and unit parameters; its
+  JSON round-trips with `repro.qrd.QRDConfig`;
+* `register_backend` / `list_backends` — the backend registry (the ported
+  built-ins ``'cordic'`` and ``'cordic_pallas'`` are entries like any
+  third-party backend);
+* `QRDEngine` — registry-dispatched decomposition plus ``solve()``, on the
+  GPU by default;
+* `back_substitute` — the batched triangular solve.
+"""
+from .registry import (BackendCapabilities, BackendSpec, register_backend,
+                       unregister_backend, get_backend, list_backends,
+                       available_backends, complex_capable_backends)
+from .config import QRDConfig
+from .solve import back_substitute, lstsq_from_triangular, SOLVE_TOLERANCES
+from . import backends as _backends  # populates the registry on import
+from .engine import QRDEngine
+
+__all__ = [
+    "BackendCapabilities", "BackendSpec", "register_backend",
+    "unregister_backend", "get_backend", "list_backends",
+    "available_backends", "complex_capable_backends",
+    "QRDConfig", "QRDEngine",
+    "back_substitute", "lstsq_from_triangular", "SOLVE_TOLERANCES",
+]

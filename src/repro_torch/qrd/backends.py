@@ -1,0 +1,78 @@
+"""Built-in backend registrations (torch port of `repro.qrd.backends`).
+
+Two of the JAX package's six built-ins are ported, with the same
+capability records:
+
+  'cordic'         the paper's unit, host loop (the kernel's plain version)
+  'cordic_pallas'  the same unit in the CUDA kernel, bit-identical to it
+
+'jnp', 'givens_float', 'blockfp_pallas' and 'fixed' are ROADMAP items and
+not registered yet: asking for one raises the registry's unknown-backend
+error.  Importing this module (``repro_torch.qrd`` does) populates the
+registry.
+"""
+from __future__ import annotations
+
+from repro_torch.core import qrd as _q
+from repro_torch.core.givens import GivensUnit
+
+from .registry import (BackendCapabilities, available_backends,
+                       register_backend)
+
+__all__ = ["register_builtin_backends"]
+
+
+def _flat_steps(config, m, n):
+    """Schedule for step-serial backends: None = column-major default."""
+    if config.schedule == "sameh_kuck":
+        return tuple(s for st in _q.sameh_kuck_schedule(m, n) for s in st)
+    return None
+
+
+def _no_complex(config):
+    if config.is_complex():
+        raise NotImplementedError(
+            "the complex datapath is not ported yet (ROADMAP A9, kernel B7)")
+
+
+def _build_cordic(config, m, n, compute_q):
+    _no_complex(config)
+    unit = GivensUnit(config.givens)
+    steps = _flat_steps(config, m, n)
+    return lambda A: _q.qr_cordic(A, unit, compute_q=compute_q, steps=steps)
+
+
+def _build_cordic_pallas(config, m, n, compute_q):
+    _no_complex(config)
+    if config.schedule == "sameh_kuck":
+        raise NotImplementedError(
+            "schedule='sameh_kuck' routes onto the wavefront kernel, which is "
+            "not ported yet (ROADMAP A8, kernel B5)")
+    unit = GivensUnit(config.givens)
+    return lambda A: _q.qr_cordic_pallas(A, unit, compute_q=compute_q,
+                                         tile_b=config.tile_b)
+
+
+def register_builtin_backends(overwrite=False):
+    """Populate the registry with the ported built-in backends (idempotent)."""
+    entries = (
+        ("cordic", _build_cordic, BackendCapabilities(
+            bit_exact=True, wavefront=False, sharding=True,
+            dtypes=("float64", "complex128"),
+            description="the paper's unit, host reference loop "
+                        "('sameh_kuck' consumes the flattened stage order; "
+                        "complex via the three-rotation decomposition)")),
+        ("cordic_pallas", _build_cordic_pallas, BackendCapabilities(
+            bit_exact=True, wavefront=True, sharding=True,
+            dtypes=("float64", "complex128"),
+            max_shape=(128, 128), supports_tiling=True,
+            description="kernel-resident unit, bit-identical to 'cordic'; "
+                        "'sameh_kuck' routes onto the wavefront datapath")),
+    )
+    registered = available_backends()
+    for name, builder, caps in entries:
+        if overwrite or name not in registered:
+            register_backend(name, builder, caps, overwrite=overwrite)
+
+
+register_builtin_backends()

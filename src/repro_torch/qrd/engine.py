@@ -1,0 +1,210 @@
+"""The QRD engine: registry-dispatched, problem-level API (torch port of
+`repro.qrd.engine`).
+
+* **decompose** — ``engine(A)``: batched ``(Q, R)`` via the registered
+  backend, one built callable per ``(m, n, compute_q, config)`` held in a
+  bounded LRU.
+* **solve** — ``engine.solve(A, b)``: batched least squares via the Q-free
+  augmented-column trick + `repro_torch.qrd.solve.back_substitute`.
+
+The engine runs on the GPU unless it is given ``device="cpu"``; on the CPU
+every kernel's plain PyTorch version runs instead.  Streaming RLS
+(``rls``/``fleet``, ROADMAP A6/A11), sharding meshes (A12) and autotuned
+tiles (A10) are not ported yet.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+
+import torch
+
+from .config import QRDConfig, _dtype_name
+from .solve import lstsq_from_triangular
+
+__all__ = ["QRDEngine"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> the GPU, which must exist; anything else as given."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "QRDEngine runs on the GPU by default and no CUDA device is "
+                "available; pass device='cpu' to run the kernels' plain "
+                "PyTorch versions on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+class QRDEngine:
+    """Registry-dispatched batched QRD with problem-level methods.
+
+    Parameters
+    ----------
+    config : QRDConfig, optional
+        The problem configuration; defaults to ``QRDConfig()``.
+    device : str or torch.device, optional
+        Where operands are factorized.  ``None`` is the GPU and raises
+        ``RuntimeError`` when CUDA is unavailable; ``"cpu"`` runs the plain
+        PyTorch versions of the kernels.
+    max_cache : int
+        Bound on the built-callable LRU.
+    **overrides
+        Field overrides applied on top of ``config``, e.g.
+        ``backend='cordic_pallas'``; ``givens_config=`` is an alias for
+        ``givens=``.
+
+    Examples
+    --------
+    >>> eng = QRDEngine(backend='cordic_pallas',
+    ...                 givens=GivensConfig(hub=True, n=26))
+    >>> Q, R = eng(A)                      # decomposition, on the GPU
+    >>> x = eng.solve(A, b)                # batched least squares
+    """
+
+    def __init__(self, config: QRDConfig | None = None, *, device=None,
+                 max_cache=32, **overrides):
+        self.device = resolve_device(device)
+        if config is None:
+            config = QRDConfig()
+        if "givens_config" in overrides:
+            overrides["givens"] = overrides.pop("givens_config")
+        if overrides:
+            config = config.replace(**overrides)
+        self._spec = config.validate()   # raises early: bad backend/schedule
+        if config.mesh is not None:
+            raise NotImplementedError("mesh dispatch is not ported yet "
+                                      "(ROADMAP A12)")
+        self.config = config
+        if max_cache < 1:
+            raise ValueError("max_cache must be >= 1")
+        self._max_cache = int(max_cache)
+        self._fn_cache: OrderedDict = OrderedDict()
+
+    @property
+    def capabilities(self):
+        """The configured backend's `BackendCapabilities`."""
+        return self._spec.capabilities
+
+    def __repr__(self):
+        return (f"QRDEngine(backend={self.config.backend!r}, "
+                f"schedule={self.config.schedule!r}, device={self.device}, "
+                f"cached={len(self._fn_cache)}/{self._max_cache})")
+
+    # -- decomposition --------------------------------------------------------
+    def _validate_operand(self, A, config: QRDConfig):
+        """Validate the operand dtype against the backend's capabilities.
+
+        * bool/integer operands are promoted to float64 explicitly;
+        * complex operands require a complex-capable backend — otherwise
+          ``TypeError`` names the backend and the complex-capable set — and
+          upgrade the config's dtype to the matching complex dtype;
+        * non-numeric input fails in ``torch.as_tensor``.
+
+        Returns the (possibly promoted) operand and the routing config.
+        """
+        A = torch.as_tensor(A)
+        if A.dtype == torch.bool or not (A.is_floating_point()
+                                         or A.is_complex()):
+            A = A.to(torch.float64)
+        elif A.is_complex():
+            if not config.is_complex():
+                from . import registry
+                caps = registry.get_backend(config.backend).capabilities
+                if not caps.supports_complex:
+                    raise TypeError(
+                        f"complex operand (dtype {A.dtype}) but backend "
+                        f"{config.backend!r} has no complex datapath; "
+                        "complex-capable backends: "
+                        f"{', '.join(registry.complex_capable_backends())}.")
+                config = config.replace(dtype=_dtype_name(A.dtype))
+        return A, config
+
+    def _dispatch(self, A, compute_q):
+        """Registry dispatch with the bounded built-callable LRU.
+
+        Shapes beyond the flat route (`repro_torch.qrd.tiled.resolve_route`)
+        raise: the tiled routes are not ported yet.
+        """
+        A, config = self._validate_operand(A, self.config)
+        if A.dim() < 2:
+            raise ValueError(f"expected (..., m, n) operand, got {tuple(A.shape)}")
+        m, n = A.shape[-2], A.shape[-1]
+        key = (m, n, bool(compute_q), config.cache_key())
+        fn = self._fn_cache.pop(key, None)
+        if fn is None:
+            from . import tiled
+            spec = config.validate()
+            route = tiled.resolve_route(config, m, n, spec.capabilities)
+            if route == "flat":
+                fn = spec.builder(config, m, n, bool(compute_q))
+            else:
+                fn = tiled.build_tiled(route, config, m, n, bool(compute_q),
+                                       spec.capabilities)
+        self._fn_cache[key] = fn           # (re-)insert as most-recent
+        while len(self._fn_cache) > self._max_cache:
+            self._fn_cache.popitem(last=False)
+        return fn(A.to(self.device))
+
+    def __call__(self, A, compute_q=True):
+        """Batched QRD: ``A (..., m, n) -> (Q, R)`` (Q None w/o compute_q)."""
+        return self._dispatch(A, compute_q)
+
+    decompose = __call__
+
+    # -- least squares --------------------------------------------------------
+    def solve(self, A, b, return_residuals=False):
+        """Batched least squares ``min_x ||A x - b||`` without forming Q.
+
+        Triangularizes ``[A | b]`` with ``compute_q=False`` (the appended
+        columns come out as ``Qᵀ b``), then back-substitutes.  Accuracy
+        against a float64 least-squares solve is documented per backend in
+        `repro_torch.qrd.solve.SOLVE_TOLERANCES`.
+
+        Parameters
+        ----------
+        A : (..., m, n) tensor or array_like, with ``m >= n``.
+        b : (..., m) or (..., m, k) tensor or array_like.
+        return_residuals : bool — also return the ``(..., k)`` residual
+            two-norms ``||A x - b||``.
+
+        Returns
+        -------
+        x : (..., n) or (..., n, k) float64 on the engine's device, or
+        ``(x, residuals)``.
+        """
+        A = torch.as_tensor(A)
+        b = torch.as_tensor(b)
+        if self.config.is_complex() or A.is_complex() or b.is_complex():
+            work_dtype = torch.complex128
+        else:
+            work_dtype = torch.float64
+        A = A.to(device=self.device, dtype=work_dtype)
+        b = b.to(device=self.device, dtype=work_dtype)
+        m, n = A.shape[-2], A.shape[-1]
+        if m < n:
+            raise ValueError(f"solve() needs m >= n (got {m} x {n}); "
+                             "underdetermined systems have no unique "
+                             "least-squares triangular solve")
+        vec = b.dim() == A.dim() - 1
+        B = b[..., None] if vec else b
+        if B.dim() != A.dim() or B.shape[-2] != m:
+            raise ValueError(f"b rows must match A rows: A {tuple(A.shape)}, "
+                             f"b {tuple(b.shape)}")
+        aug = torch.cat([A, B], dim=-1)
+        _, Raug = self._dispatch(aug, False)
+        x, resid = lstsq_from_triangular(Raug, n)
+        if vec:
+            x, resid = x[..., 0], resid[..., 0]
+        return (x, resid) if return_residuals else x
+
+    # -- streaming RLS --------------------------------------------------------
+    def rls(self, *args, **kwargs):
+        """Streaming QRD-RLS state; not ported yet (ROADMAP A6)."""
+        raise NotImplementedError("streaming QRD-RLS is not ported yet "
+                                  "(ROADMAP A6)")
+
+    def fleet(self, *args, **kwargs):
+        """QRD-RLS serving fleet; not ported yet (ROADMAP A11)."""
+        raise NotImplementedError("the QRD-RLS fleet is not ported yet "
+                                  "(ROADMAP A11)")
