@@ -5,14 +5,17 @@
 
 Builds every CUDA kernel of the main path from ``src/repro_torch/kernels/
 csrc``, holds each against its plain PyTorch version on the card, drives
-the main path — ``QRDEngine(backend='cordic_pallas')`` and ``.solve`` — at
-full width, checks the results, and prints one JSON line describing each
-kernel followed by a final ``{"ok": true, "device": ...}`` line.  Any
-failed phase exits non-zero.  There is no CPU fallback: without a CUDA
-device the script fails.  It imports neither ``jax`` nor ``repro``.
+the three routes of ``QRDEngine(backend='cordic_pallas')`` and ``.solve``
+at full width — flat (8192 x 32 x 32), panel (1024 x 64 x 64) and TSQR
+(32 x 4096 x 32) — checks the results, times the kernels with CUDA events,
+and prints one JSON line describing each kernel followed by a final
+``{"ok": true, "device": ...}`` line.  Any failed phase exits non-zero.
+There is no CPU fallback: without a CUDA device the script fails.  It
+imports neither ``jax`` nor ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -28,9 +31,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 from repro_torch.core.formats import HALF, SINGLE, pack_fields  # noqa: E402
 from repro_torch.core.givens import GivensConfig, GivensUnit  # noqa: E402
 from repro_torch.core.qrd import givens_schedule  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.core.qrd import qr_cordic_pallas  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import qrd_blocked as qb  # noqa: E402
 from repro_torch.qrd import QRDEngine, SOLVE_TOLERANCES  # noqa: E402
+from repro_torch.qrd.tiled import tsqr_host_reference  # noqa: E402
 
 SEED = 0
 
@@ -38,14 +43,52 @@ SEED = 0
 #: of 32 x 16 least-squares problems with one right-hand side.
 BATCH, M, N_COLS, N_SOLVE = 8192, 32, 32, 16
 
+#: The tiled routes at full width, both with Q: a batch of 64 x 64 (auto
+#: tiling picks the panel route, panel_n = 8) and a batch of 4096 x 32 (auto
+#: picks TSQR with tile_m = 128: 32 leaves, 5 tree levels).
+PANEL_BATCH, PANEL_M = 1024, 64
+TSQR_BATCH, TSQR_M, TSQR_N, TSQR_TILE_M = 32, 4096, 32, 128
+PANEL_N = 8
+
+#: TSQR's factor limits, as the JAX package's own TSQR test holds them, and
+#: the absolute limit of its solve against a float64 least-squares solve.
+TSQR_TOL = 1e-4
+
+#: The flat kernel beyond shared memory: 128 x 128 with Q is a 128 x 256
+#: int64 tile, 256 KiB a matrix, factorized in device memory.
+BIG_BATCH, BIG_M = 132, 128
+
+#: (m, n, compute_q) of the panel kernels' parity phase (panel widths 3
+#: and 8 each).
+PANEL_PARITY_SHAPES = ((12, 6, True), (20, 5, False))
+
+COUNTERS = {"qr_packed": "QR_PACKED_LAUNCHES",
+            "panel_factor_packed": "PANEL_FACTOR_LAUNCHES",
+            "panel_apply_packed": "PANEL_APPLY_LAUNCHES"}
+
 #: Accuracy limits of the main path: relative QR residual and loss of
 #: orthogonality, per matrix (Frobenius norms); the unit's 26-bit
 #: significand gives about 1e-6 at this size.
 QR_TOL = 1e-5
 
-#: INT32 ALU rate of an H100 SXM: 64 INT32 lanes per SM x 132 SMs x 1.98 GHz
-#: boost clock (Hopper architecture white paper), and its HBM3 bandwidth.
-INT32_OPS_PER_S = 64 * 132 * 1.98e9
+
+def qr_tol(m):
+    """`QR_TOL` at m = 32, growing in proportion to m.  The unit's own loss
+    of orthogonality grows with m past 1e-5: the worst matrix of the panel
+    path (IEEE, 64 x 64) reads 1.056e-5 and that of the 128 x 128 phase
+    (HUB) 1.339e-5, and the JAX package reads the same on those matrices on
+    the CPU (``tools/orth_witness.py``).  The linear law is a limit fitted
+    to these readings, not a derived bound."""
+    return QR_TOL * max(1, m / 32)
+
+
+#: Integer instruction rate of an H100 SXM: each SM issues at most 4 warp
+#: instructions (4 x 32 thread operations) per clock, x 132 SMs x 1.98 GHz
+#: boost clock (Hopper architecture white paper).  Integer work issues on
+#: both the INT32 and the FMA pipes (IMAD, moves), so the 64 INT32 lanes per
+#: SM are not its ceiling: the panel apply kernel ran faster than a bound
+#: taken from them.  And the HBM3 bandwidth.
+INT_OPS_PER_S = 4 * 32 * 132 * 1.98e9
 HBM_BYTES_PER_S = 3.35e12
 
 #: Operation count of the packed datapath, per rotated element per
@@ -100,6 +143,15 @@ def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
+def reset_counts():
+    for attr in COUNTERS.values():
+        setattr(qb, attr, 0)
+
+
+def read_counts():
+    return {name: getattr(qb, attr) for name, attr in COUNTERS.items()}
+
+
 def check_kernel(P, cfg, steps, tile_b=None):
     """Kernel against plain version on the same words: bit-equal or fail."""
     out = qb.qr_packed_call(P, cfg=cfg, steps=steps, tile_b=tile_b)
@@ -135,11 +187,26 @@ def parity_phase(device):
 
 
 def qr_errors(A, Q, R):
-    eye = torch.eye(A.shape[-2], dtype=A.dtype, device=A.device)
+    """Largest relative residual |QR - A|/|A| and loss of orthogonality
+    |QtQ - I| over the batch (Frobenius norms), and the index of the matrix
+    with the largest loss of orthogonality."""
+    eye = torch.eye(Q.shape[-1], dtype=A.dtype, device=A.device)
     fro = lambda X: torch.linalg.matrix_norm(X)  # noqa: E731
     resid = (fro(Q @ R - A) / fro(A)).max().item()
-    orth = fro(Q.transpose(-1, -2) @ Q - eye).max().item()
-    return resid, orth
+    orth = fro(Q.transpose(-1, -2) @ Q - eye)
+    return resid, orth.max().item(), int(orth.argmax())
+
+
+def panel_operand():
+    """The panel path's batch of 64 x 64 matrices, from its seed."""
+    return np.random.default_rng(SEED + 3).normal(
+        size=(PANEL_BATCH, PANEL_M, PANEL_M))
+
+
+def big_operand():
+    """The batch of 128 x 128 matrices of the flat route beyond shared
+    memory, from its seed."""
+    return np.random.default_rng(SEED + 6).normal(size=(BIG_BATCH, BIG_M, BIG_M))
 
 
 def main_path(device):
@@ -154,13 +221,14 @@ def main_path(device):
                                givens=g, device=device)
                for name, g in (("hub", hub), ("ieee", ieee))}
 
-    qb.QR_PACKED_LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
     results = {name: eng(A) for name, eng in engines.items()}
     x = engines["hub"].solve(As, b)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = qb.QR_PACKED_LAUNCHES
+    counts = read_counts()
+    launches = counts["qr_packed"]
 
     if launches < 3:
         fail(f"main path launched qr_packed {launches} times, expected 3")
@@ -171,7 +239,7 @@ def main_path(device):
             fail(f"{name}: shapes {tuple(Q.shape)} {tuple(R.shape)}")
         if torch.count_nonzero(torch.tril(R, -1)).item() != 0:
             fail(f"{name}: R has non-zero entries below the diagonal")
-        resid, orth = qr_errors(A, Q, R)
+        resid, orth, _ = qr_errors(A, Q, R)
         if not (resid <= QR_TOL and orth <= QR_TOL):
             fail(f"{name}: |QR-A|/|A| = {resid}, |QtQ-I| = {orth} (limit {QR_TOL})")
         print(f"main path {name}: Q {tuple(Q.shape)} R {tuple(R.shape)} "
@@ -184,7 +252,7 @@ def main_path(device):
         fail(f"solve: relative error {sol_err} (limit {tol}), shape {tuple(x.shape)}")
     print(f"main path solve: x {tuple(x.shape)} max |x-x_lstsq|/|x_lstsq| = "
           f"{sol_err:.3e} (limit {tol})", flush=True)
-    print(f"main path: {launches} qr_packed launches, {wall:.3f} s wall "
+    print(f"main path: launches {counts}, {wall:.3f} s wall "
           f"(first calls, build excluded)", flush=True)
     return launches, A, As, b, hub
 
@@ -206,14 +274,417 @@ def active_elements(m, n, e):
     return sum((m - 1 - c) * 2 * (e - c) for c in range(min(m - 1, n)))
 
 
-def bound(cfg, B, m, n, e):
-    """Least time for the work: int64 operations over the INT32 ALU rate,
-    against two passes over the tile at HBM bandwidth."""
+def _bound(cfg, elements, nbytes):
+    """Least time for the work: int64 operations, as 32-bit instructions,
+    over the SM's issue rate, against the bytes moved at HBM bandwidth."""
     per_elem = (OPS_PER_MICROROTATION * cfg.resolved_iters() + OPS_GAIN
                 + OPS_CONVERT) * INT64_WORD_FACTOR
-    ops_ms = B * active_elements(m, n, e) * per_elem / INT32_OPS_PER_S * 1e3
-    bytes_ms = 2 * B * m * e * 8 / HBM_BYTES_PER_S * 1e3
+    ops_ms = elements * per_elem / INT_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def bound(cfg, B, m, n, e):
+    """The flat kernel's bound: its rotated elements, two passes over the
+    tile."""
+    return _bound(cfg, B * active_elements(m, n, e), 2 * B * m * e * 8)
+
+
+def panel_route_work(B, m, n, e, pw=PANEL_N):
+    """Launches, rotated elements and bytes of each panel kernel in one
+    panel-route call on B working tiles of m x e (n columns annihilated).
+    Bytes: each input word read once and each output word written once
+    (the panel or trailing region both ways, the (B, S) control words)."""
+    work = {name: dict(launches=0, elements=0, bytes=0)
+            for name in ("panel_factor_packed", "panel_apply_packed")}
+    for c0 in range(0, min(n, m - 1), pw):
+        nc, mr = min(pw, n - c0), m - c0
+        w = e - c0 - nc
+        cols = range(min(mr - 1, nc))
+        S = sum(mr - 1 - c for c in cols)
+        f = work["panel_factor_packed"]
+        f["launches"] += 1
+        f["elements"] += B * sum((mr - 1 - c) * 2 * (nc - c) for c in cols)
+        f["bytes"] += B * (2 * mr * nc + 2 * S) * 8
+        if w > 0:
+            a = work["panel_apply_packed"]
+            a["launches"] += 1
+            a["elements"] += B * S * 2 * w
+            a["bytes"] += B * (2 * mr * w + 2 * S) * 8
+    return work
+
+
+def tsqr_work(B, m, n, tile_m, compute_q):
+    """`panel_route_work` summed over a TSQR call: the leaves, then one
+    batch of stacked (2n, n) R pairs per tree level."""
+    L = -(-m // tile_m)
+    parts = [panel_route_work(B * L, tile_m, n, n + (tile_m if compute_q else 0))]
+    cur = L
+    while cur > 1:
+        pairs = cur // 2
+        parts.append(panel_route_work(B * pairs, 2 * n, n,
+                                      n + (2 * n if compute_q else 0)))
+        cur = pairs + cur % 2
+    return {name: {key: sum(p[name][key] for p in parts)
+                   for key in parts[0][name]} for name in parts[0]}
+
+
+def compare(what, got, want):
+    """Bit-equality of two int64 tensors (or tuples of them), or fail."""
+    if torch.is_tensor(got):
+        got, want = (got,), (want,)
+    for g, w in zip(got, want):
+        if g.shape != w.shape:
+            fail(f"{what}: shapes {tuple(g.shape)} and {tuple(w.shape)}")
+        if not torch.equal(g, w):
+            bad = tuple((g != w).nonzero()[0].tolist())
+            fail(f"{what}: first differing word {bad}: "
+                 f"kernel {g[bad].item():#x} plain {w[bad].item():#x}")
+
+
+def check_panel_sweep(P, cfg, n_cols, pw, tile_b=None):
+    """The panel route on the card with every launch held against its plain
+    version on the same inputs, and the result against the flat kernel:
+    bit-equal or fail."""
+    m, e = P.shape[-2:]
+    W = P.clone()
+    what = f"{cfg} at {tuple(P.shape)}, pw={pw}, tile_b={tile_b}"
+    for c0 in range(0, min(n_cols, m - 1), pw):
+        nc = min(pw, n_cols - c0)
+        piv, tgt, col = ops.panel_steps(m - c0, nc)
+        tile = W[:, c0:, c0:c0 + nc]
+        want = qb.panel_factor_packed_reference(tile, piv, tgt, col, cfg=cfg)
+        got = qb.panel_factor_packed_call(tile, piv, tgt, col, cfg=cfg,
+                                          tile_b=tile_b)
+        compare(f"panel_factor_packed, {what}, panel {c0}", got, want)
+        if c0 + nc < e:
+            T = W[:, c0:, c0 + nc:]
+            want = qb.panel_apply_packed_reference(T, piv, tgt, got[1], got[2],
+                                                   cfg=cfg)
+            qb.panel_apply_packed_call(T, piv, tgt, got[1], got[2], cfg=cfg)
+            compare(f"panel_apply_packed, {what}, panel {c0}", T, want)
+    flat = qb.qr_packed_call(P.contiguous(), cfg=cfg,
+                             steps=givens_schedule(m, n_cols))
+    compare(f"panel route against qr_packed, {what}", W, flat)
+
+
+def panel_parity_phase(device):
+    rng = np.random.default_rng(SEED + 2)
+    n_cases = 0
+    for cfg in parity_configs():
+        for (m, n, cq) in PANEL_PARITY_SHAPES:
+            e = n + (m if cq else 0)
+            for P in (encoded_words(cfg, 16, m, n, cq, rng, device),
+                      edge_words(cfg, 16, m, e, rng, device)):
+                for pw in (3, 8):
+                    check_panel_sweep(P, cfg, n, pw)
+                    n_cases += 1
+        # a ragged batch: 5 matrices in blocks of 4 (and 2)
+        P = encoded_words(cfg, 5, 10, 4, True, rng, device)
+        for tile_b in (4, 2):
+            check_panel_sweep(P, cfg, 4, 3, tile_b=tile_b)
+            n_cases += 1
+    print(f"parity: panel_factor_packed and panel_apply_packed bit-equal to "
+          f"their plain versions at every launch, and the panel route to "
+          f"qr_packed, on {n_cases} cases ({len(parity_configs())} configs x "
+          f"shapes {[s[:2] for s in PANEL_PARITY_SHAPES]} x panel widths 3, 8, "
+          f"random + edge words, ragged B=5)", flush=True)
+
+
+def _engine(device, g, **kw):
+    return QRDEngine(backend="cordic_pallas", dtype="float64", givens=g,
+                     device=device, **kw)
+
+
+def flat_device_phase(device):
+    """The flat kernel with its tile in device memory: bit-equal to its plain
+    version at a small shape (forced by lowering the shared-memory limit),
+    and to the panel route at 128 x 128 with Q, where it must be used."""
+    rng = np.random.default_rng(SEED + 5)
+    limit = qb.MAX_SHARED_BYTES
+    qb.MAX_SHARED_BYTES = 0
+    n_cases = 0
+    for cfg in parity_configs():
+        for P in (encoded_words(cfg, 5, 12, 6, True, rng, device),
+                  edge_words(cfg, 5, 12, 18, rng, device)):
+            check_kernel(P, cfg, givens_schedule(12, 6), tile_b=2)
+            n_cases += 1
+    qb.MAX_SHARED_BYTES = limit
+    print(f"parity: qr_packed with the tile in device memory bit-equal to "
+          f"qr_packed_reference on {n_cases} cases (12 x 6 with Q, ragged B=5 "
+          f"in blocks of 2)", flush=True)
+
+    g = GivensConfig(hub=True, n=26)
+    A = torch.tensor(big_operand(), device=device)
+    e = 2 * BIG_M
+    if BIG_M * e * 8 <= qb.MAX_SHARED_BYTES:
+        fail(f"{BIG_M} x {e} fits shared memory; the phase needs a larger tile")
+    reset_counts()
+    Qf, Rf = _engine(device, g, tiling="flat")(A)
+    flat_counts = read_counts()
+    Qp, Rp = _engine(device, g)(A)                    # auto -> panel
+    panel_counts = {k: v - flat_counts[k] for k, v in read_counts().items()}
+    torch.cuda.synchronize()
+    if flat_counts["qr_packed"] != 1 or panel_counts["qr_packed"] != 0:
+        fail(f"128 x 128: launches flat {flat_counts}, panel {panel_counts}")
+    compare("flat (device-memory tile) against panel route, Q", Qf.view(torch.int64),
+            Qp.view(torch.int64))
+    compare("flat (device-memory tile) against panel route, R", Rf.view(torch.int64),
+            Rp.view(torch.int64))
+    resid, orth, worst = qr_errors(A, Qf, Rf)
+    if not (resid <= qr_tol(BIG_M) and orth <= qr_tol(BIG_M)):
+        fail(f"128 x 128: |QR-A|/|A| = {resid}, |QtQ-I| = {orth} "
+             f"(limit {qr_tol(BIG_M)})")
+    unit = GivensUnit(g)
+    eye = torch.eye(BIG_M, dtype=torch.float64, device=device).expand(A.shape)
+    P = unit.encode(torch.cat([A, eye], dim=-1)).contiguous()
+    steps = givens_schedule(BIG_M, BIG_M)
+    ms, _ = _event_ms(lambda: qb.qr_packed_call(P, cfg=g, steps=steps), 3)
+    bound_ms, bound_by = bound(g, BIG_BATCH, BIG_M, BIG_M, e)
+    print(f"flat route at {tuple(A.shape)} with Q: tile {BIG_M} x {e} int64 "
+          f"({BIG_M * e * 8} B > {qb.MAX_SHARED_BYTES} B of shared memory) in "
+          f"device memory; Q and R bit-equal to the panel route; max "
+          f"|QR-A|/|A| = {resid:.3e}, |QtQ-I| = {orth:.3e} (matrix {worst}; limit "
+          f"{qr_tol(BIG_M):.0e}); kernel {ms:.3f} ms "
+          f"(median of 3), bound {bound_ms:.3f} ms ({bound_by})", flush=True)
+    return dict(ms=ms, bound_ms=bound_ms, shape=[BIG_BATCH, BIG_M, e])
+
+
+@contextlib.contextmanager
+def wrapped_panel_kernels(wrap):
+    """Route the panel kernels' wrappers through ``wrap(fn, name)`` inside
+    the block (the panel driver looks them up on `qb` at each call)."""
+    attrs = {"panel_factor_packed": "panel_factor_packed_call",
+             "panel_apply_packed": "panel_apply_packed_call"}
+    orig = {name: getattr(qb, attr) for name, attr in attrs.items()}
+    for name, attr in attrs.items():
+        setattr(qb, attr, wrap(orig[name], name))
+    yield
+    for name, attr in attrs.items():
+        setattr(qb, attr, orig[name])
+
+
+def capture_first(store):
+    """A `wrapped_panel_kernels` wrapper that keeps a copy of the arguments
+    of each kernel's first launch (its inputs, before the in-place call)."""
+    def wrap(fn, name):
+        def call(*args, **kw):
+            if name not in store:
+                store[name] = ([a.clone() if torch.is_tensor(a) else a
+                                for a in args], kw)
+            return fn(*args, **kw)
+        return call
+    return wrap
+
+
+def check_launches(path, counts, work):
+    """The launches counted in one engine call against the route's plan."""
+    want = {name: work[name]["launches"] if name in work else 0
+            for name in counts}
+    if counts != want:
+        fail(f"{path}: launches {counts}, expected {want}")
+
+
+def counted_call(fn, *args):
+    """``fn(*args)`` with every count set to 0 just before and read just
+    after; returns the result and the counts of that one call."""
+    reset_counts()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, read_counts()
+
+
+def add_counts(*counts):
+    return {name: sum(c[name] for c in counts) for name in COUNTERS}
+
+
+def panel_path(device):
+    """auto -> panel at full width, HUB and IEEE, against the flat kernel."""
+    A = torch.tensor(panel_operand(), device=device)
+    configs = {"hub": GivensConfig(hub=True, n=26), "ieee": GivensConfig(n=26)}
+    engines = {name: _engine(device, g) for name, g in configs.items()}
+    work = panel_route_work(PANEL_BATCH, PANEL_M, PANEL_M, 2 * PANEL_M)
+    captured, results, per_call = {}, {}, {}
+    with wrapped_panel_kernels(capture_first(captured)):
+        t0 = time.perf_counter()
+        for name, eng in engines.items():
+            results[name], per_call[name] = counted_call(eng, A)
+            check_launches(f"panel path {name}", per_call[name], work)
+        wall = time.perf_counter() - t0
+    counts = add_counts(*per_call.values())
+    for name, (Q, R) in results.items():
+        if Q.shape != (PANEL_BATCH, PANEL_M, PANEL_M) or R.shape != Q.shape:
+            fail(f"panel {name}: shapes {tuple(Q.shape)} {tuple(R.shape)}")
+        if torch.count_nonzero(torch.tril(R, -1)).item() != 0:
+            fail(f"panel {name}: R has non-zero entries below the diagonal")
+        Qf, Rf = _engine(device, configs[name], tiling="flat")(A)
+        compare(f"panel {name}: Q against the flat route", Q.view(torch.int64),
+                Qf.view(torch.int64))
+        compare(f"panel {name}: R against the flat route", R.view(torch.int64),
+                Rf.view(torch.int64))
+        resid, orth, worst = qr_errors(A, Q, R)
+        tol = qr_tol(PANEL_M)
+        if not (resid <= tol and orth <= tol):
+            fail(f"panel {name}: |QR-A|/|A| = {resid}, |QtQ-I| = {orth} "
+                 f"(limit {tol})")
+        print(f"panel path {name}: Q {tuple(Q.shape)} R {tuple(R.shape)} "
+              f"bit-equal to the flat route; max |QR-A|/|A| = {resid:.3e}, "
+              f"max |QtQ-I| = {orth:.3e} (matrix {worst}; limit {tol:.0e}; "
+              f"{QR_TOL:.0e} at 32 x 32)", flush=True)
+    print(f"panel path: launches per engine call {per_call}, each as "
+          f"planned; {wall:.3f} s wall (first calls)", flush=True)
+    g = configs["hub"]
+    unit = GivensUnit(g)
+    eye = torch.eye(PANEL_M, dtype=torch.float64, device=device).expand(A.shape)
+    P = unit.encode(torch.cat([A, eye], dim=-1)).contiguous()
+    steps = givens_schedule(PANEL_M, PANEL_M)
+    qb.qr_packed_call(P, cfg=g, steps=steps)                      # warm
+    flat_ms, _ = _event_ms(lambda: qb.qr_packed_call(P, cfg=g, steps=steps), 5)
+    print(f"flat kernel qr_packed on the same hub batch {tuple(P.shape)}: "
+          f"{flat_ms:.3f} ms (median of 5)", flush=True)
+    return dict(counts=counts, per_call=per_call["hub"], captured=captured,
+                A=A, engine=engines["hub"], work=work, flat_ms=flat_ms,
+                flat_shape=list(P.shape))
+
+
+def tsqr_path(device):
+    """auto -> TSQR at full width, with Q, and solve, against the host tree
+    replay on the flat kernel and a float64 least-squares solve."""
+    rng = np.random.default_rng(SEED + 4)
+    A = torch.tensor(rng.normal(size=(TSQR_BATCH, TSQR_M, TSQR_N)), device=device)
+    b = torch.tensor(rng.normal(size=(TSQR_BATCH, TSQR_M)), device=device)
+    g = GivensConfig(hub=True, n=26)
+    eng = _engine(device, g)
+    work = tsqr_work(TSQR_BATCH, TSQR_M, TSQR_N, TSQR_TILE_M, True)
+    solve_work = tsqr_work(TSQR_BATCH, TSQR_M, TSQR_N + 1, TSQR_TILE_M, False)
+    captured = {}
+    with wrapped_panel_kernels(capture_first(captured)):
+        t0 = time.perf_counter()
+        (Q, R), call_counts = counted_call(eng, A)
+        check_launches("tsqr path, engine call", call_counts, work)
+        x, solve_counts = counted_call(eng.solve, A, b)
+        check_launches("tsqr path, solve", solve_counts, solve_work)
+        wall = time.perf_counter() - t0
+    counts = add_counts(call_counts, solve_counts)
+    if Q.shape != (TSQR_BATCH, TSQR_M, TSQR_N) or R.shape != (TSQR_BATCH, TSQR_N, TSQR_N):
+        fail(f"tsqr: shapes {tuple(Q.shape)} {tuple(R.shape)}")
+    if not (torch.isfinite(Q).all() and torch.isfinite(R).all()):
+        fail("tsqr: non-finite factors")
+    if torch.count_nonzero(torch.tril(R, -1)).item() != 0:
+        fail("tsqr: R has non-zero entries below the diagonal")
+    unit = GivensUnit(g)
+    q_diff = 0.0
+    for i in (0, TSQR_BATCH - 1):
+        Qr, Rr = tsqr_host_reference(A[i], lambda X: qr_cordic_pallas(X, unit),
+                                     TSQR_TILE_M)
+        compare(f"tsqr: R of matrix {i} against the host tree on qr_packed",
+                R[i].view(torch.int64), Rr.view(torch.int64))
+        q_diff = max(q_diff, (Q[i] - Qr).abs().max().item())
+    if not q_diff <= 1e-12:
+        fail(f"tsqr: Q differs from the host tree by {q_diff} (limit 1e-12)")
+    resid, orth, _ = qr_errors(A, Q, R)
+    if not (resid <= TSQR_TOL and orth <= TSQR_TOL):
+        fail(f"tsqr: |QR-A|/|A| = {resid}, |QtQ-I| = {orth} (limit {TSQR_TOL})")
+    ref = torch.linalg.lstsq(A, b[..., None]).solution[..., 0]
+    abs_err = (x - ref).abs().max().item()
+    rel_err = (torch.linalg.vector_norm(x - ref, dim=-1)
+               / torch.linalg.vector_norm(ref, dim=-1)).max().item()
+    if not (x.shape == (TSQR_BATCH, TSQR_N) and torch.isfinite(x).all()
+            and abs_err <= TSQR_TOL):
+        fail(f"tsqr solve: max |x - x_lstsq| = {abs_err} (limit {TSQR_TOL})")
+    print(f"tsqr path: Q {tuple(Q.shape)} R {tuple(R.shape)}; R bit-equal to "
+          f"the host tree on qr_packed for matrices 0 and {TSQR_BATCH - 1}, Q "
+          f"within {q_diff:.3e}; max |QR-A|/|A| = {resid:.3e}, max |QtQ-I| = "
+          f"{orth:.3e} (limit {TSQR_TOL})", flush=True)
+    print(f"tsqr solve: x {tuple(x.shape)} max |x-x_lstsq| = {abs_err:.3e} "
+          f"(limit {TSQR_TOL}), max |x-x_lstsq|/|x_lstsq| = {rel_err:.3e} "
+          f"(SOLVE_TOLERANCES['cordic_pallas'] = "
+          f"{SOLVE_TOLERANCES['cordic_pallas']})", flush=True)
+    print(f"tsqr path: launches {call_counts} in the engine call and "
+          f"{solve_counts} in the solve, each as planned; {wall:.3f} s wall "
+          f"(first calls)", flush=True)
+    return dict(counts=counts, per_call=call_counts, captured=captured, A=A,
+                engine=eng, work=work)
+
+
+def tiled_timing(path, eng, A, work, repeats=5):
+    """Each panel kernel's device time per engine call (CUDA events around
+    every launch, summed), median of ``repeats`` warm calls; each call's
+    launches, counted from its events, must match the route's plan
+    ``work``."""
+    events = []
+
+    def timed(fn, name):
+        def call(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            events.append((name, start, end))
+            return out
+        return call
+
+    totals = {"panel_factor_packed": [], "panel_apply_packed": []}
+    walls = []
+    with wrapped_panel_kernels(timed):
+        eng(A)                                   # warm
+        torch.cuda.synchronize()
+        for _ in range(repeats):
+            events.clear()
+            t0 = time.perf_counter()
+            _, counts = counted_call(eng, A)
+            walls.append(time.perf_counter() - t0)
+            check_launches(f"{path}, timed call", counts, work)
+            timed_calls = {name: sum(n == name for n, _, _ in events)
+                           for name in COUNTERS}
+            if timed_calls != counts:
+                fail(f"{path}: timed {timed_calls} launches, counted {counts}")
+            for name in totals:
+                totals[name].append(sum(s.elapsed_time(e)
+                                        for n, s, e in events if n == name))
+    ms = {name: statistics.median(v) for name, v in totals.items()}
+    wall_ms = statistics.median(walls) * 1e3
+    print(f"timing {path} at {tuple(A.shape)}: " + ", ".join(
+        f"{name} {t:.3f} ms per engine call" for name, t in ms.items())
+        + f"; engine call {wall_ms:.3f} ms host wall (median of {repeats})",
+        flush=True)
+    return ms, wall_ms
+
+
+def plain_check(captured, cfg):
+    """Each panel kernel against its plain version on the inputs of its first
+    launch on a full-width path: bit-equal, with both timed."""
+    out = {}
+    unit = GivensUnit(cfg)
+    for name, (args, kw) in captured.items():
+        call = getattr(qb, f"{name}_call")
+        reference = getattr(qb, f"{name}_reference")
+        times = []
+        for _ in range(5):
+            x = args[0].clone()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            got = call(x, *args[1:], **kw)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        t0 = time.perf_counter()
+        want = reference(*args, cfg=kw["cfg"])
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        compare(f"{name} at its first full-width launch {tuple(args[0].shape)}",
+                got, want)
+        if isinstance(got, tuple):
+            got, want = got[0], want[0]
+        err = (unit.decode(got) - unit.decode(want)).abs().max().item()
+        out[name] = dict(kernel_ms=statistics.median(times), plain_ms=plain_ms,
+                         max_abs_err=err, shape=list(args[0].shape))
+        print(f"{name} at {tuple(args[0].shape)} ({len(args[1])} steps): "
+              f"kernel {out[name]['kernel_ms']:.3f} ms, plain {plain_ms:.1f} ms, "
+              f"bit-equal", flush=True)
+    return out
 
 
 def timing_phase(A, As, b, cfg):
@@ -253,15 +724,33 @@ def main():
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}",
           flush=True)
 
+    return run(device)
+
+
+def run(device):
+    """Every phase on ``device``; returns 0 or exits non-zero."""
     t0 = time.perf_counter()
-    _build.build(["qr_packed"])
-    info = _build.BUILD_INFO.get("qr_packed", {})
-    print(f"build: qr_packed.cu in {time.perf_counter() - t0:.1f} s; ptxas: "
-          f"{' | '.join(info.get('ptxas', []))}", flush=True)
+    sources = ["qr_packed", "panel_packed"]
+    _build.build(sources)                      # one nvcc each, in parallel
+    print(f"build: {', '.join(s + '.cu' for s in sources)} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name in sources:
+        info = _build.BUILD_INFO.get(name, {})
+        print(f"ptxas {name}: {' | '.join(info.get('ptxas', []))}", flush=True)
 
     parity_phase(device)
+    panel_parity_phase(device)
+    big = flat_device_phase(device)
     launches, A, As, b, cfg = main_path(device)
     timing = timing_phase(A, As, b, cfg)
+    panel = panel_path(device)
+    tsqr = tsqr_path(device)
+    panel_ms, panel_wall = tiled_timing("panel path", panel["engine"],
+                                        panel["A"], panel["work"])
+    tsqr_ms, tsqr_wall = tiled_timing("tsqr path", tsqr["engine"], tsqr["A"],
+                                      tsqr["work"])
+    plain = {"panel": plain_check(panel["captured"], cfg),
+             "tsqr": plain_check(tsqr["captured"], cfg)}
 
     kernels = [{
         "name": "qr_packed",
@@ -279,7 +768,56 @@ def main():
         "library_ms": None,
         "shape": timing["shape"],
         "config": "hub n=26 iters=24",
+        "panel_shape_ms": panel["flat_ms"],
+        "panel_shape": panel["flat_shape"],
+        "device_tile_ms": big["ms"],
+        "device_tile_bound_ms": big["bound_ms"],
+        "device_tile_shape": big["shape"],
     }]
+    replaces = {"panel_factor_packed": ("src/repro/kernels/qrd_blocked.py:764",
+                                        "panel_factor_packed_call / "
+                                        "_panel_factor_packed_kernel"),
+                "panel_apply_packed": ("src/repro/kernels/qrd_blocked.py:837",
+                                       "panel_apply_packed_call / "
+                                       "_panel_apply_packed_kernel")}
+    for name, (where, function) in replaces.items():
+        bound_ms, bound_by = _bound(cfg, panel["work"][name]["elements"],
+                                    panel["work"][name]["bytes"])
+        tsqr_bound_ms, _ = _bound(cfg, tsqr["work"][name]["elements"],
+                                  tsqr["work"][name]["bytes"])
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/panel_packed.cu",
+            "replaces": where,
+            "replaces_function": function,
+            "launches": panel["counts"][name] + tsqr["counts"][name],
+            "launches_by_path": {"panel": panel["counts"][name],
+                                 "tsqr": tsqr["counts"][name]},
+            "launches_per_engine_call": {"panel": panel["per_call"][name],
+                                         "tsqr": tsqr["per_call"][name]},
+            "parity": "bit-equal",
+            "max_abs_err": max(plain[p][name]["max_abs_err"] for p in plain),
+            "ms": panel_ms[name],
+            "plain_ms": plain["panel"][name]["plain_ms"],
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,
+            "shape": [PANEL_BATCH, PANEL_M, PANEL_M],
+            "ms_is": "kernel total per engine call, panel path, median of 5",
+            "plain_ms_is": "one launch, the first of the panel path",
+            "plain_shape": plain["panel"][name]["shape"],
+            "kernel_ms_same_launch": plain["panel"][name]["kernel_ms"],
+            "tsqr_ms": tsqr_ms[name],
+            "tsqr_bound_ms": tsqr_bound_ms,
+            "tsqr_shape": [TSQR_BATCH, TSQR_M, TSQR_N],
+            "tsqr_plain_ms": plain["tsqr"][name]["plain_ms"],
+            "tsqr_plain_shape": plain["tsqr"][name]["shape"],
+            "tsqr_kernel_ms_same_launch": plain["tsqr"][name]["kernel_ms"],
+            "config": "hub n=26 iters=24",
+        })
+    print(f"engine call host wall: panel path {panel_wall:.3f} ms, tsqr path "
+          f"{tsqr_wall:.3f} ms", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,12 +3,15 @@
 
 An m x n input is triangularized by the column-major Givens schedule, and
 Q is obtained by augmenting the rows with the identity (the 1.0 entries of
-I enter the unit as data).  Two routines, bit-identical to each other and to
-`repro.core.qrd`:
+I enter the unit as data).  Three routines, bit-identical to each other and
+to `repro.core.qrd`:
 
   `qr_cordic`         the host loop: the plain PyTorch version of the kernel
   `qr_cordic_pallas`  the kernel: every schedule step on one resident tile
                       (`repro_torch.kernels.ops.qr_packed`)
+  `qr_cordic_panel`   the panel route: panel factorizations whose control
+                      words are replayed over the trailing columns
+                      (`repro_torch.kernels.ops.qr_packed_panel`)
 
 The name ``cordic_pallas`` is kept so configurations carry over between
 the two packages; on the GPU it is the CUDA kernel `csrc/qr_packed.cu`.
@@ -21,8 +24,8 @@ import torch
 
 from .givens import GivensUnit
 
-__all__ = ["qr_cordic", "qr_cordic_pallas", "givens_schedule",
-           "sameh_kuck_schedule"]
+__all__ = ["qr_cordic", "qr_cordic_pallas", "qr_cordic_panel",
+           "givens_schedule", "sameh_kuck_schedule"]
 
 #: Bound on the host-side schedule memoization.
 SCHEDULE_CACHE_SIZE = 128
@@ -131,3 +134,36 @@ def qr_cordic_pallas(A, unit: GivensUnit, compute_q=True, steps=None,
     def run(P, steps):
         return ops.qr_packed(P, cfg=unit.cfg, steps=steps, tile_b=tile_b)
     return _packed_qr(A, unit, compute_q, steps, run)
+
+
+def qr_cordic_panel(A, unit: GivensUnit, compute_q=True, panel_n=8,
+                    tile_b=None):
+    """Tiled panel QRD over packed words: production m at kernel speed.
+
+    The scaling form of `qr_cordic_pallas`: the triangularization proceeds
+    panel by panel, the rotation control words exported from each panel
+    factorization and replayed over the trailing columns
+    (`repro_torch.kernels.ops.qr_packed_panel`).  Column-major order is
+    preserved exactly, so (Q, R) are **bit-identical** to `qr_cordic` /
+    `qr_cordic_pallas` with the default schedule (IEEE and HUB).
+
+    Parameters
+    ----------
+    A : (..., m, n) tensor or array_like, converted to float64.
+    unit : GivensUnit — the configured rotator.
+    compute_q : bool — augment the rows with the identity to accumulate Qᵀ.
+    panel_n : int — panel width.
+    tile_b : int, optional — panels per CUDA block of the factorization.
+
+    Returns
+    -------
+    (Q, R) : float64 tensors (Q is None when ``compute_q=False``).
+    """
+    from repro_torch.kernels import ops
+
+    A = torch.as_tensor(A, dtype=torch.float64)
+    m, n = A.shape[-2], A.shape[-1]
+    P = unit.encode(_augment(A, compute_q))
+    out = unit.decode(ops.qr_packed_panel(P, cfg=unit.cfg, n_cols=n,
+                                          panel_n=panel_n, tile_b=tile_b))
+    return _split_qr(out, m, n, compute_q)

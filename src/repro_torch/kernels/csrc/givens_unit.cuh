@@ -242,4 +242,14 @@ __device__ __forceinline__ i64 apply_gain(i64 v, const UnitParams& u) {
   return acc >> sh;
 }
 
+// GivensUnit.rotate on one packed element pair: replay (flip, sig) in place.
+__device__ __forceinline__ void rotate_pair(i64& xp, i64& yp, const UnitParams& u,
+                                            i64 flip, i64 sig) {
+  i64 x, y, m_exp;
+  to_fixed(xp, yp, u, x, y, m_exp);
+  rotation(x, y, u, flip, sig);
+  xp = to_float(apply_gain(x, u), m_exp, u);
+  yp = to_float(apply_gain(y, u), m_exp, u);
+}
+
 }  // namespace gru

@@ -1,14 +1,22 @@
-"""Kernel-resident blocked QR over packed FP words: the CUDA kernel
-``csrc/qr_packed.cu``, its launch wrapper and its plain PyTorch version.
+"""Kernel-resident QR over packed FP words: the CUDA kernels, their launch
+wrappers, launch counters and plain PyTorch versions.
 
-Replaces `repro.kernels.qrd_blocked.qr_packed_call` / `_qr_packed_kernel`:
-the whole (batched) m x e working tile stays on-chip while every schedule
-step runs the unit's full dataflow on it, and the result is written back
-once.  The output is bit-identical to `qr_packed_reference`, the loop of
-`GivensUnit.rotate_rows` over the steps.
+* `qr_packed_call` (``csrc/qr_packed.cu``) replaces
+  `repro.kernels.qrd_blocked.qr_packed_call`: every schedule step of the
+  flat route on one resident m x e tile, bit-identical to
+  `qr_packed_reference`, the loop of `GivensUnit.rotate_rows` over the
+  steps.  A tile beyond a block's shared memory is factorized in place in
+  device memory.
+* `panel_factor_packed_call` and `panel_apply_packed_call`
+  (``csrc/panel_packed.cu``) replace their namesakes of the JAX package:
+  the panel route's factorization of an mr x pw panel, exporting each
+  step's control word ``(flip, sigma)``, and the replay of those words over
+  the trailing columns.  Bit-identical to `panel_factor_packed_reference`
+  and `panel_apply_packed_reference`, loops of `GivensUnit.vector` and
+  `GivensUnit.rotate`.
 
-`qr_packed_call` dispatches on the operand's device: a CUDA tensor
-launches the kernel (or raises), a CPU tensor runs `qr_packed_reference`.
+Each wrapper dispatches on the operand's device: a CUDA tensor launches the
+kernel (or raises), a CPU tensor runs the plain version.
 """
 from __future__ import annotations
 
@@ -19,23 +27,29 @@ import torch
 
 from repro_torch.core import cordic
 from repro_torch.core.givens import GivensConfig, GivensUnit
+from repro_torch.core.qrd import SCHEDULE_CACHE_SIZE
 
 from . import _build
 
 __all__ = ["qr_packed_call", "qr_packed_reference", "QR_PACKED_LAUNCHES",
+           "panel_factor_packed_call", "panel_factor_packed_reference",
+           "PANEL_FACTOR_LAUNCHES", "panel_apply_packed_call",
+           "panel_apply_packed_reference", "PANEL_APPLY_LAUNCHES",
            "TILE_B", "MAX_SHARED_BYTES", "kernel_params"]
 
 #: Matrices per CUDA block when the caller gives no ``tile_b``.
 TILE_B = 1
 
-#: Dynamic shared memory one block may use on Hopper (227 KB).
+#: Dynamic shared memory one block may use on Hopper (227 KB).  The flat
+#: kernel factorizes a block's tiles beyond it in place in device memory;
+#: the panel factorization keeps its panels within it.
 MAX_SHARED_BYTES = 232448
 
-#: Launches of the CUDA kernel in this process (comparisons included);
-#: callers reset it to 0 to count one run.
+#: Launches of each CUDA kernel in this process (comparisons included);
+#: callers reset them to 0 to count one run.
 QR_PACKED_LAUNCHES = 0
-
-_SCHEDULE_CACHE_SIZE = 128
+PANEL_FACTOR_LAUNCHES = 0
+PANEL_APPLY_LAUNCHES = 0
 
 
 def qr_packed_reference(P, *, cfg: GivensConfig, steps):
@@ -55,6 +69,51 @@ def qr_packed_reference(P, *, cfg: GivensConfig, steps):
     return P
 
 
+def panel_factor_packed_reference(P, piv, tgt, col, *, cfg: GivensConfig):
+    """Plain PyTorch version of the panel factorization, on any device.
+
+    P : (B, mr, pw) int64 packed words; piv, tgt, col : (S,) panel-local
+    step tables.  Returns new ``(out, flip, sig)``: for each step the
+    lead pair ``(piv, col), (tgt, col)`` goes through `GivensUnit.vector`,
+    its control word is replayed with `GivensUnit.rotate` on both rows from
+    ``col`` (the lead included) and the target lead is forced to 0;
+    ``flip`` and ``sig`` are the (B, S) int64 control words.
+    """
+    unit = GivensUnit(cfg)
+    P = P.clone()
+    flips, sigs = [], []
+    for k, j, c in zip(*(_host_table(t) for t in (piv, tgt, col))):
+        _, _, (flip, sig) = unit.vector(P[:, k, c], P[:, j, c])
+        rx, ry = unit.rotate(P[:, k, c:], P[:, j, c:],
+                             (flip[:, None], sig[:, None]))
+        ry[:, 0] = 0                     # structural zero (systolic array)
+        P[:, k, c:] = rx
+        P[:, j, c:] = ry
+        flips.append(flip)
+        sigs.append(sig)
+    empty = P.new_zeros((P.shape[0], 0))
+    return (P, torch.stack(flips, 1) if flips else empty,
+            torch.stack(sigs, 1) if sigs else empty)
+
+
+def panel_apply_packed_reference(T, piv, tgt, flip, sig, *, cfg: GivensConfig):
+    """Plain PyTorch version of the trailing-column replay, on any device.
+
+    T : (B, mr, w) int64 packed words; piv, tgt : (S,) panel-local row
+    tables; flip, sig : (B, S) int64 control words.  Returns new (B, mr, w)
+    words: each step's control word replayed with `GivensUnit.rotate` on
+    whole rows piv and tgt.
+    """
+    unit = GivensUnit(cfg)
+    T = T.clone()
+    for s, (k, j) in enumerate(zip(_host_table(piv), _host_table(tgt))):
+        rx, ry = unit.rotate(T[:, k], T[:, j],
+                             (flip[:, s, None], sig[:, s, None]))
+        T[:, k] = rx
+        T[:, j] = ry
+    return T
+
+
 def kernel_params(cfg: GivensConfig) -> dict:
     """The unit's scalars as the kernel takes them; the gain constant is
     computed on the host exactly as `cordic.apply_gain` does."""
@@ -72,20 +131,73 @@ def kernel_params(cfg: GivensConfig) -> dict:
 
 _C_INT, _C_LL, _C_PTR = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 
+#: ctypes types of `kernel_params`, in the order every launch takes them,
+#: followed by the stream.
+_UNIT_ARGTYPES = [_C_INT] * 2 + [_C_LL] * 2 + [_C_INT] * 6 + [_C_LL, _C_INT,
+                                                               _C_PTR]
 
-@lru_cache(maxsize=1)
-def _lib():
-    lib = _build.load("qr_packed")
-    lib.qr_packed_launch.argtypes = (
-        [_C_PTR, _C_PTR, _C_PTR] + [_C_INT] * 8 + [_C_LL, _C_LL]
-        + [_C_INT] * 6 + [_C_LL, _C_INT, _C_PTR])
-    lib.qr_packed_launch.restype = _C_INT
-    lib.qr_packed_error_string.argtypes = [_C_INT]
-    lib.qr_packed_error_string.restype = ctypes.c_char_p
+
+@lru_cache(maxsize=SCHEDULE_CACHE_SIZE)
+def _unit_args(cfg: GivensConfig):
+    return tuple(kernel_params(cfg).values())
+
+
+@lru_cache(maxsize=None)
+def _lib(name: str):
+    """The ctypes handle of ``csrc/<name>.cu`` with its launch signatures."""
+    lib = _build.load(name)
+    signatures = {
+        "qr_packed_launch": [_C_PTR] * 3 + [_C_INT] * 7,
+        "panel_factor_launch": ([_C_PTR, _C_LL, _C_LL] + [_C_INT] * 3
+                                + [_C_PTR] * 3 + [_C_INT] + [_C_PTR] * 2
+                                + [_C_INT] * 2),
+        "panel_apply_launch": ([_C_PTR, _C_LL, _C_LL] + [_C_INT] * 2
+                               + [_C_PTR] * 2 + [_C_INT] + [_C_PTR] * 2
+                               + [_C_INT]),
+    }
+    for fn, head in signatures.items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = head + _UNIT_ARGTYPES
+            getattr(lib, fn).restype = _C_INT
+    err_string = getattr(lib, f"{name}_error_string")
+    err_string.argtypes = [_C_INT]
+    err_string.restype = ctypes.c_char_p
     return lib
 
 
-@lru_cache(maxsize=_SCHEDULE_CACHE_SIZE)
+def _stream(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_launch(name: str, err: int):
+    if err != 0:
+        msg = getattr(_lib(name), f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
+                           f"({msg})")
+
+
+def _check_operand(fn: str, P, ndim: int = 3):
+    """True for a CPU tensor (run the plain version); raises on anything
+    but an int64 CUDA tensor of ``ndim`` dims with unit column stride."""
+    if P.device.type == "cpu":
+        return True
+    if P.device.type != "cuda":
+        raise ValueError(f"{fn} runs on CUDA or CPU tensors, got {P.device}")
+    if P.dtype != torch.int64 or P.dim() != ndim or P.stride(-1) != 1:
+        raise ValueError(f"{fn}: expected a {ndim}-d int64 tensor with unit "
+                         f"column stride, got {P.dtype} {tuple(P.shape)} "
+                         f"strides {P.stride()}")
+    return False
+
+
+def _threads_x(e: int) -> int:
+    """Threads of a row of the step loop `gru::factor_tile` (both the flat
+    kernel and the panel factorization): one per element up to a warp,
+    then whole warps, at most 256."""
+    return e if e <= 32 else min(-(-e // 32) * 32, 256)
+
+
+@lru_cache(maxsize=SCHEDULE_CACHE_SIZE)
 def _step_table(steps, m: int, e: int, device: str):
     for (k, j, col) in steps:
         if not (0 <= k < m and 0 <= j < m and k != j and 0 <= col < e):
@@ -93,6 +205,31 @@ def _step_table(steps, m: int, e: int, device: str):
                              f"for a {m} x {e} working tile")
     return torch.tensor(steps, dtype=torch.int32,
                         device=device).reshape(len(steps), 3)
+
+
+def _host_table(t) -> tuple:
+    """A (S,) step table (numpy array, tensor or sequence) as a tuple of
+    ints."""
+    if isinstance(t, torch.Tensor):
+        t = t.cpu()
+    return tuple(int(v) for v in t)
+
+
+@lru_cache(maxsize=SCHEDULE_CACHE_SIZE)
+def _panel_tables(rows, cols, mr: int, pw: int, device: str):
+    """Validated device copies of panel-local step tables: rows is a tuple
+    of (S,) row tables, cols the column table or None."""
+    S = len(rows[0])
+    if any(len(t) != S for t in rows) or (cols is not None and len(cols) != S):
+        raise ValueError("panel step tables differ in length")
+    for s in range(S):
+        k, j = rows[0][s], rows[1][s]
+        if not (0 <= k < mr and 0 <= j < mr and k != j) or (
+                cols is not None and not 0 <= cols[s] < pw):
+            raise ValueError(f"panel step {s} ({k}, {j}) is out of range for "
+                             f"a panel of {mr} x {pw}")
+    return tuple(torch.tensor(t, dtype=torch.int32, device=device)
+                 for t in rows + ((cols,) if cols is not None else ()))
 
 
 def qr_packed_call(P, *, cfg: GivensConfig, steps, tile_b: int | None = None):
@@ -113,43 +250,138 @@ def qr_packed_call(P, *, cfg: GivensConfig, steps, tile_b: int | None = None):
 
     Returns
     -------
-    (B, m, e) int64 — the triangularized packed words.
+    (B, m, e) int64 — the triangularized packed words.  When the block's
+    tiles exceed `MAX_SHARED_BYTES` the kernel works on them in place in
+    the output's device memory instead of shared memory; the words are the
+    same.
     """
     global QR_PACKED_LAUNCHES
     steps = tuple(tuple(int(v) for v in s) for s in steps)
-    if P.device.type == "cpu":
+    if _check_operand("qr_packed_call", P):
         return qr_packed_reference(P, cfg=cfg, steps=steps)
-    if P.device.type != "cuda":
-        raise ValueError(f"qr_packed_call runs on CUDA or CPU tensors, got "
-                         f"{P.device}")
-    if P.dtype != torch.int64 or P.dim() != 3 or not P.is_contiguous():
-        raise ValueError(f"expected a contiguous (B, m, e) int64 tensor, got "
-                         f"{P.dtype} {tuple(P.shape)}")
+    if not P.is_contiguous():
+        raise ValueError("qr_packed_call: expected a contiguous tensor")
     tile_b = TILE_B if tile_b is None else int(tile_b)
     B, m, e = P.shape
-    threads_x = min(max(32, -(-e // 32) * 32), 256)
+    threads_x = _threads_x(e)
     if tile_b < 1 or threads_x * tile_b > 1024:
         raise ValueError(f"tile_b={tile_b} gives a block of {threads_x} x "
                          f"{tile_b} threads (at most 1024)")
-    smem = tile_b * m * e * 8
-    if smem > MAX_SHARED_BYTES:
-        raise ValueError(f"working tile {tile_b} x {m} x {e} int64 needs "
-                         f"{smem} bytes of shared memory; a block has "
-                         f"{MAX_SHARED_BYTES}")
+    device_tile = tile_b * m * e * 8 > MAX_SHARED_BYTES
     out = torch.empty_like(P)
     if B == 0:
         return out
     table = _step_table(steps, m, e, str(P.device))
-    kp = kernel_params(cfg)
-    lib = _lib()
-    stream = torch.cuda.current_stream(P.device).cuda_stream
-    err = lib.qr_packed_launch(
+    err = _lib("qr_packed").qr_packed_launch(
         P.data_ptr(), out.data_ptr(), table.data_ptr(), B, m, e, len(steps),
-        tile_b, threads_x, kp["man_bits"], kp["exp_bits"], kp["bias"],
-        kp["max_exp_raw"], kp["N"], kp["iters"], kp["hub"], kp["rne"],
-        kp["unbiased"], kp["detect_identity"], kp["comp"], kp["p"], stream)
-    if err != 0:
-        raise RuntimeError(f"qr_packed kernel launch failed: CUDA error {err} "
-                           f"({lib.qr_packed_error_string(err).decode()})")
+        tile_b, threads_x, int(device_tile), *_unit_args(cfg), _stream(P))
+    _check_launch("qr_packed", err)
     QR_PACKED_LAUNCHES += 1
     return out
+
+
+def panel_factor_packed_call(P, piv, tgt, col, *, cfg: GivensConfig,
+                             tile_b: int | None = None):
+    """Panel factorization over packed FP words, exporting control words;
+    one CUDA launch, **in place** on ``P``.
+
+    Parameters
+    ----------
+    P : (B, mr, pw) int64
+        One panel of each working matrix: the ``mr`` not-yet-final rows
+        (global rows ``c0..m-1`` for the panel starting at column ``c0``)
+        and its ``pw`` columns.  May be a view with any batch and row
+        strides (a slice of the (B, m, e) working buffer) but unit column
+        stride.  On a CPU tensor the plain version runs instead.
+    piv, tgt, col : (S,) int
+        Panel-local step tables (`repro_torch.kernels.ops.panel_steps`).
+    cfg : GivensConfig
+        Unit configuration.
+    tile_b : int, optional
+        Panels per CUDA block; by default as many as fill one warp and fit
+        in `MAX_SHARED_BYTES` of shared memory, which the block's panels
+        must not exceed (ValueError).
+
+    Returns
+    -------
+    (P, flip, sig) — ``P`` factored in place (upper-triangular head over
+    zeros); ``flip``/``sig`` (B, S) int64, the control words replayable over
+    the trailing columns with `panel_apply_packed_call`.
+    """
+    global PANEL_FACTOR_LAUNCHES
+    if _check_operand("panel_factor_packed_call", P):
+        out, flip, sig = panel_factor_packed_reference(P, piv, tgt, col,
+                                                       cfg=cfg)
+        P.copy_(out)
+        return P, flip, sig
+    B, mr, pw = P.shape
+    tables = _panel_tables((_host_table(piv), _host_table(tgt)),
+                           _host_table(col), mr, pw, str(P.device))
+    S = tables[0].shape[0]
+    threads_x = _threads_x(pw)
+    panel_bytes = mr * pw * 8
+    if tile_b is None:
+        tile_b = max(1, min(32 // threads_x, MAX_SHARED_BYTES // panel_bytes))
+    tile_b = int(tile_b)
+    if tile_b < 1 or threads_x * tile_b > 1024:
+        raise ValueError(f"tile_b={tile_b} gives a block of {threads_x} x "
+                         f"{tile_b} threads (at most 1024)")
+    if tile_b * panel_bytes > MAX_SHARED_BYTES:
+        raise ValueError(f"tile_b={tile_b} panels of {mr} x {pw} words need "
+                         f"{tile_b * panel_bytes} B of shared memory (at most "
+                         f"{MAX_SHARED_BYTES}); use narrower panels")
+    flip = torch.empty((B, S), dtype=torch.int64, device=P.device)
+    sig = torch.empty_like(flip)
+    if B == 0 or S == 0:
+        return P, flip, sig
+    err = _lib("panel_packed").panel_factor_launch(
+        P.data_ptr(), P.stride(0), P.stride(1), B, mr, pw,
+        *(t.data_ptr() for t in tables), S, flip.data_ptr(), sig.data_ptr(),
+        tile_b, threads_x, *_unit_args(cfg), _stream(P))
+    _check_launch("panel_packed", err)
+    PANEL_FACTOR_LAUNCHES += 1
+    return P, flip, sig
+
+
+def panel_apply_packed_call(T, piv, tgt, flip, sig, *, cfg: GivensConfig):
+    """Replay a panel's control words over the trailing columns; one CUDA
+    launch, **in place** on ``T``.
+
+    Parameters
+    ----------
+    T : (B, mr, w) int64
+        The trailing region right of the panel, the same ``mr`` rows.  May
+        be a view with any batch and row strides but unit column stride.
+        On a CPU tensor the plain version runs instead.
+    piv, tgt : (S,) int — panel-local step row tables.
+    flip, sig : (B, S) int64 — control words from `panel_factor_packed_call`.
+
+    Returns
+    -------
+    ``T``, updated in place.  Every column is rotated on its own, so one
+    CUDA thread owns one column for all S steps.
+    """
+    global PANEL_APPLY_LAUNCHES
+    if _check_operand("panel_apply_packed_call", T):
+        T.copy_(panel_apply_packed_reference(T, piv, tgt, flip, sig, cfg=cfg))
+        return T
+    B, mr, w = T.shape
+    piv_t, tgt_t = _panel_tables((_host_table(piv), _host_table(tgt)), None,
+                                 mr, w, str(T.device))
+    S = piv_t.shape[0]
+    if (flip.shape != (B, S) or sig.shape != (B, S) or flip.device != T.device
+            or sig.device != T.device or not flip.is_contiguous()
+            or not sig.is_contiguous() or flip.dtype != torch.int64
+            or sig.dtype != torch.int64):
+        raise ValueError(f"flip and sig must be contiguous ({B}, {S}) int64 "
+                         f"tensors on {T.device}")
+    if B == 0 or S == 0 or w == 0:
+        return T
+    threads = min(-(-w // 32) * 32, 128)
+    err = _lib("panel_packed").panel_apply_launch(
+        T.data_ptr(), T.stride(0), T.stride(1), B, w, piv_t.data_ptr(),
+        tgt_t.data_ptr(), S, flip.data_ptr(), sig.data_ptr(), threads,
+        *_unit_args(cfg), _stream(T))
+    _check_launch("panel_packed", err)
+    PANEL_APPLY_LAUNCHES += 1
+    return T

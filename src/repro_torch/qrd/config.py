@@ -5,7 +5,7 @@ so ``QRDConfig.from_json(other.to_json())`` carries a configuration between
 the two packages unchanged.  Fields whose datapath is not ported yet stay
 for that round-trip: ``interpret`` (the port has no interpret mode: a
 kernel runs on the GPU, its plain version on the CPU), the block-FP and
-fixed-point knobs, ``table_layout``, ``tile_m``/``panel_n`` and ``mesh``.
+fixed-point knobs, ``table_layout`` and ``mesh``.
 The device is not part of the configuration: it belongs to the engine.
 """
 from __future__ import annotations
@@ -52,8 +52,14 @@ class QRDConfig:
     tile_b : int, optional
         Matrices per CUDA block of the packed-word kernel; ``None`` takes
         `repro_torch.kernels.qrd_blocked.TILE_B`.
-    table_layout, tiling, tile_m, panel_n : tiled/wavefront knobs; only
-        ``tiling`` in ``(None, 'auto', 'flat')`` has a route yet.
+    table_layout : wavefront table layout (ROADMAP A8); kept for the JSON
+        round-trip.
+    tiling : str, optional
+        ``None``/``'auto'``, ``'flat'``, ``'panel'`` or ``'tsqr'``
+        (`repro_torch.qrd.tiled.resolve_route`).
+    tile_m, panel_n : int, optional
+        TSQR leaf rows and panel width of the tiled routes; ``None`` takes
+        the backend's row capacity and `tiled.DEFAULT_PANEL_N`.
     mesh : sharding mesh; excluded from hash/equality and from `as_dict`.
     """
 

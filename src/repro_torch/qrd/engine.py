@@ -8,9 +8,10 @@
   augmented-column trick + `repro_torch.qrd.solve.back_substitute`.
 
 The engine runs on the GPU unless it is given ``device="cpu"``; on the CPU
-every kernel's plain PyTorch version runs instead.  Streaming RLS
-(``rls``/``fleet``, ROADMAP A6/A11), sharding meshes (A12) and autotuned
-tiles (A10) are not ported yet.
+every kernel's plain PyTorch version runs instead.  Shapes beyond the flat
+route go to the panel or TSQR route (`repro_torch.qrd.tiled`).  Streaming
+RLS (``rls``/``fleet``, ROADMAP A6/A11), sharding meshes (A12) and
+autotuned tiles (A10) are not ported yet.
 """
 from __future__ import annotations
 
@@ -121,11 +122,9 @@ class QRDEngine:
         return A, config
 
     def _dispatch(self, A, compute_q):
-        """Registry dispatch with the bounded built-callable LRU.
-
-        Shapes beyond the flat route (`repro_torch.qrd.tiled.resolve_route`)
-        raise: the tiled routes are not ported yet.
-        """
+        """Registry dispatch with the bounded built-callable LRU; the
+        route (flat, panel or tsqr) comes from
+        `repro_torch.qrd.tiled.resolve_route`."""
         A, config = self._validate_operand(A, self.config)
         if A.dim() < 2:
             raise ValueError(f"expected (..., m, n) operand, got {tuple(A.shape)}")

@@ -32,6 +32,8 @@ JAX_CONFIGS = [
                    givens=JConfig(fmt=JHALF, n=13, iters=11,
                                   input_rounding="rne"),
                    tile_b=4, tiling="flat", interpret=True, panel_n=8),
+    japi.QRDConfig(backend="cordic_pallas", dtype="float64", tiling="tsqr",
+                   tile_m=64, panel_n=4),
 ]
 
 
@@ -96,8 +98,12 @@ def test_engine_defaults_to_the_gpu(monkeypatch):
 def test_unported_paths_raise():
     eng = tapi.QRDEngine(backend="cordic_pallas", dtype="float64",
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        eng(np.eye(64))
+    # the panel route is ported (ROADMAP A7): bit-equal to the flat route
+    A = np.random.default_rng(1).normal(size=(6, 5))
+    panel = tapi.QRDEngine(backend="cordic_pallas", dtype="float64",
+                           device="cpu", tiling="panel", panel_n=2)(A)
+    for got, want in zip(panel, eng(A)):
+        assert torch.equal(got, want)
     with pytest.raises(ValueError, match="max_shape"):
         eng(np.ones((200, 200)))
     sk = tapi.QRDEngine(backend="cordic_pallas", schedule="sameh_kuck",

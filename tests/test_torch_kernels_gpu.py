@@ -1,5 +1,5 @@
-"""The CUDA kernels of `repro_torch` against their plain PyTorch versions,
-on the GPU.
+"""The CUDA kernels of `repro_torch` (the flat kernel, the panel factor and
+apply kernels) against their plain PyTorch versions, on the GPU.
 
 Marked ``gpu``: the kernels have no CPU or interpret mode, so these tests
 skip on a machine without CUDA (the `cuda` fixture decides, at run time).
@@ -18,6 +18,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 
 from repro_torch.core.qrd import givens_schedule  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import qrd_blocked as qb  # noqa: E402
 from repro_torch.qrd import QRDEngine  # noqa: E402
 
@@ -72,3 +73,75 @@ def test_engine_on_gpu_equals_cpu(cuda):
     assert qb.QR_PACKED_LAUNCHES == before + 1
     Qc, Rc = QRDEngine(device="cpu", **kw)(A)
     assert torch.equal(Qg.cpu(), Qc) and torch.equal(Rg.cpu(), Rc)
+
+
+@pytest.mark.parametrize("i", range(len(CONFIGS)))
+def test_panel_kernels_bit_equal_to_plain_versions(cuda, i):
+    """B3a and B3b at every launch of the panel route, against their plain
+    versions (`chip_smoke.check_panel_sweep` fails the test otherwise)."""
+    cfg = CONFIGS[i]
+    rng = np.random.default_rng(20 + i)
+    before = (qb.PANEL_FACTOR_LAUNCHES, qb.PANEL_APPLY_LAUNCHES)
+    for pw in (3, 8):
+        chip_smoke.check_panel_sweep(
+            chip_smoke.encoded_words(cfg, 8, 12, 6, True, rng, cuda), cfg, 6, pw)
+        chip_smoke.check_panel_sweep(
+            chip_smoke.edge_words(cfg, 8, 12, 18, rng, cuda), cfg, 6, pw)
+    assert qb.PANEL_FACTOR_LAUNCHES > before[0]
+    assert qb.PANEL_APPLY_LAUNCHES > before[1]
+
+
+@pytest.mark.parametrize("tile_b", [1, 2, 4])
+def test_panel_factor_ragged_batch(cuda, tile_b):
+    cfg = CONFIGS[2]
+    P = chip_smoke.encoded_words(cfg, 5, 10, 4, True, np.random.default_rng(9),
+                                 cuda)
+    chip_smoke.check_panel_sweep(P, cfg, 4, 3, tile_b=tile_b)
+
+
+@pytest.mark.parametrize("hub", [False, True], ids=["ieee", "hub"])
+def test_engine_panel_equals_flat_on_gpu(cuda, hub):
+    A = np.random.default_rng(5).normal(size=(3, 24, 10))
+    kw = dict(backend="cordic_pallas", dtype="float64",
+              givens=chip_smoke.GivensConfig(hub=hub, n=26))
+    before = qb.PANEL_FACTOR_LAUNCHES
+    Qp, Rp = QRDEngine(tiling="panel", panel_n=4, **kw)(A)
+    assert qb.PANEL_FACTOR_LAUNCHES == before + 3
+    Qf, Rf = QRDEngine(tiling="flat", **kw)(A)
+    assert torch.equal(Qp, Qf) and torch.equal(Rp, Rf)
+
+
+def test_qr_packed_device_memory_tile(cuda, monkeypatch):
+    """The flat kernel with its tile in device memory, forced by lowering
+    the shared-memory limit, against its plain version."""
+    monkeypatch.setattr(qb, "MAX_SHARED_BYTES", 0)
+    rng = np.random.default_rng(11)
+    for cfg in CONFIGS[::3]:
+        for tile_b in (1, 2):
+            _check(chip_smoke.encoded_words(cfg, 5, 12, 6, True, rng, cuda),
+                   cfg, givens_schedule(12, 6), tile_b=tile_b)
+            _check(chip_smoke.edge_words(cfg, 5, 12, 18, rng, cuda), cfg,
+                   givens_schedule(12, 6), tile_b=tile_b)
+
+
+def test_panel_route_through_ops_equals_flat(cuda):
+    cfg = CONFIGS[0]
+    P = chip_smoke.encoded_words(cfg, 4, 20, 9, True, np.random.default_rng(3),
+                                 cuda)
+    flat = qb.qr_packed_call(P, cfg=cfg, steps=givens_schedule(20, 9))
+    for pw in (1, 4, 9, 16):
+        assert torch.equal(ops.qr_packed_panel(P, cfg=cfg, n_cols=9, panel_n=pw),
+                           flat)
+
+
+def test_panel_factor_keeps_panels_in_shared_memory(cuda, monkeypatch):
+    """The panel factorization's default tile_b fits its panels in shared
+    memory, and a tile_b whose panels do not fit raises."""
+    cfg = CONFIGS[0]
+    P = chip_smoke.encoded_words(cfg, 5, 12, 6, False, np.random.default_rng(12),
+                                 cuda)
+    piv, tgt, col = ops.panel_steps(12, 6)
+    monkeypatch.setattr(qb, "MAX_SHARED_BYTES", 2 * 12 * 6 * 8)
+    chip_smoke.check_panel_sweep(P, cfg, 6, 6)         # default tile_b: 2
+    with pytest.raises(ValueError, match="shared memory"):
+        qb.panel_factor_packed_call(P.clone(), piv, tgt, col, cfg=cfg, tile_b=3)
