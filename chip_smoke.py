@@ -7,7 +7,9 @@ Builds every CUDA kernel of the main path from ``src/repro_torch/kernels/
 csrc``, holds each against its plain PyTorch version on the card, drives
 the three routes of ``QRDEngine(backend='cordic_pallas')`` and ``.solve``
 at full width — flat (8192 x 32 x 32), panel (1024 x 64 x 64) and TSQR
-(32 x 4096 x 32) — checks the results, times the kernels with CUDA events,
+(32 x 4096 x 32) — then the same routes of the int32 block-FP lane
+``QRDEngine(backend='blockfp_pallas')`` and its streaming QRD-RLS
+(``engine.rls``), checks the results, times the kernels with CUDA events,
 and prints one JSON line describing each kernel followed by a final
 ``{"ok": true, "device": ...}`` line.  Any failed phase exits non-zero.
 There is no CPU fallback: without a CUDA device the script fails.  It
@@ -31,10 +33,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 from repro_torch.core.formats import HALF, SINGLE, pack_fields  # noqa: E402
 from repro_torch.core.givens import GivensConfig, GivensUnit  # noqa: E402
 from repro_torch.core.qrd import givens_schedule  # noqa: E402
-from repro_torch.core.qrd import qr_cordic_pallas  # noqa: E402
+from repro_torch.core.qrd import qr_blockfp_pallas, qr_cordic_pallas  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import qrd_blocked as qb  # noqa: E402
-from repro_torch.qrd import QRDEngine, SOLVE_TOLERANCES  # noqa: E402
+from repro_torch.qrd import QRDEngine, RLSState, SOLVE_TOLERANCES  # noqa: E402
 from repro_torch.qrd.tiled import tsqr_host_reference  # noqa: E402
 
 SEED = 0
@@ -50,8 +52,14 @@ PANEL_BATCH, PANEL_M = 1024, 64
 TSQR_BATCH, TSQR_M, TSQR_N, TSQR_TILE_M = 32, 4096, 32, 128
 PANEL_N = 8
 
-#: TSQR's factor limits, as the JAX package's own TSQR test holds them, and
-#: the absolute limit of its solve against a float64 least-squares solve.
+#: TSQR's factor limits on the packed lane, as the JAX package's own TSQR
+#: test holds them, and the absolute limit on both lanes' TSQR solves
+#: against a float64 least-squares solve.  That limit is borrowed from the
+#: JAX package's cordic_pallas TSQR solve test
+#: (tests/test_qrd_tiled.py::test_solve_routes_through_tsqr); the JAX
+#: package sets no TSQR solve limit of its own for either lane, so the
+#: relative error against each backend's SOLVE_TOLERANCES entry is printed
+#: beside it, met or unmet.
 TSQR_TOL = 1e-4
 
 #: The flat kernel beyond shared memory: 128 x 128 with Q is a 128 x 256
@@ -64,7 +72,15 @@ PANEL_PARITY_SHAPES = ((12, 6, True), (20, 5, False))
 
 COUNTERS = {"qr_packed": "QR_PACKED_LAUNCHES",
             "panel_factor_packed": "PANEL_FACTOR_LAUNCHES",
-            "panel_apply_packed": "PANEL_APPLY_LAUNCHES"}
+            "panel_apply_packed": "PANEL_APPLY_LAUNCHES",
+            "qr_blockfp": "QR_BLOCKFP_LAUNCHES",
+            "panel_factor_blockfp": "PANEL_FACTOR_BLOCKFP_LAUNCHES",
+            "panel_apply_blockfp": "PANEL_APPLY_BLOCKFP_LAUNCHES"}
+
+#: The panel kernels of each lane, and the bytes of one word.
+LANES = {"packed": ("panel_factor_packed", "panel_apply_packed"),
+         "blockfp": ("panel_factor_blockfp", "panel_apply_blockfp")}
+WORD_BYTES = {"packed": 8, "blockfp": 4}
 
 #: Accuracy limits of the main path: relative QR residual and loss of
 #: orthogonality, per matrix (Frobenius norms); the unit's 26-bit
@@ -95,6 +111,25 @@ HBM_BYTES_PER_S = 3.35e12
 #: rotation: 8 per micro-rotation, 12 for the gain multiply, 80 for the two
 #: converters, times 2 for 64-bit words on 32-bit ALUs.
 OPS_PER_MICROROTATION, OPS_GAIN, OPS_CONVERT, INT64_WORD_FACTOR = 8, 12, 80, 2
+
+#: Operation count of the int32 block-FP datapath (csrc/blockfp_unit.cuh),
+#: per rotated element per rotation: per micro-rotation the shift, the
+#: direction bit, the add and the select, and with HUB the carry bit (shift
+#: and mask), the inversion and the carry-in add; 12 for the Q30 gain
+#: multiply (4 products, 5 shifts and masks, 3 adds); 2 for the flip.
+OPS_BFP_MICROROTATION = {True: 9, False: 4}
+OPS_BFP_GAIN, OPS_BFP_FLIP = 12, 2
+
+#: The block-FP lane's limits, the JAX package's own: mean SNR of QR
+#: against A and loss of orthogonality (tests/test_qrd_blocked.py), and
+#: the solve's SOLVE_TOLERANCES entry.
+BFP_SNR_DB, BFP_ORTH_TOL = 90.0, 1e-4
+
+#: Streaming QRD-RLS: the adaptive beamformer of
+#: examples/adaptive_beamforming.py (8 antennas, 200 snapshots, lambda
+#: 0.99), blocks of 4 snapshots per kernel launch; its weights against
+#: float mode as the JAX package's block-mode test holds them.
+N_ANT, SNAPSHOTS, LAMBDA, RLS_BLOCK, RLS_TOL = 8, 200, 0.99, 4, 5e-3
 
 
 def parity_configs():
@@ -209,6 +244,14 @@ def big_operand():
     return np.random.default_rng(SEED + 6).normal(size=(BIG_BATCH, BIG_M, BIG_M))
 
 
+def tsqr_operands():
+    """The TSQR paths' batch of 4096 x 32 matrices and right-hand sides,
+    from their seed."""
+    rng = np.random.default_rng(SEED + 4)
+    return (rng.normal(size=(TSQR_BATCH, TSQR_M, TSQR_N)),
+            rng.normal(size=(TSQR_BATCH, TSQR_M)))
+
+
 def main_path(device):
     """The user's path at full width; returns launches and the operands."""
     rng = np.random.default_rng(SEED + 1)
@@ -290,40 +333,45 @@ def bound(cfg, B, m, n, e):
     return _bound(cfg, B * active_elements(m, n, e), 2 * B * m * e * 8)
 
 
-def panel_route_work(B, m, n, e, pw=PANEL_N):
-    """Launches, rotated elements and bytes of each panel kernel in one
-    panel-route call on B working tiles of m x e (n columns annihilated).
-    Bytes: each input word read once and each output word written once
-    (the panel or trailing region both ways, the (B, S) control words)."""
+def panel_route_work(B, m, n, e, pw=PANEL_N, lane="packed"):
+    """Launches, rotated elements and bytes of each panel kernel of
+    ``lane`` in one panel-route call on B working tiles of m x e (n columns
+    annihilated).  Bytes: each input word read once and each output word
+    written once (the panel or trailing region both ways, the (B, S)
+    control words)."""
+    factor, apply_ = LANES[lane]
+    wb = WORD_BYTES[lane]
     work = {name: dict(launches=0, elements=0, bytes=0)
-            for name in ("panel_factor_packed", "panel_apply_packed")}
+            for name in (factor, apply_)}
     for c0 in range(0, min(n, m - 1), pw):
         nc, mr = min(pw, n - c0), m - c0
         w = e - c0 - nc
         cols = range(min(mr - 1, nc))
         S = sum(mr - 1 - c for c in cols)
-        f = work["panel_factor_packed"]
+        f = work[factor]
         f["launches"] += 1
         f["elements"] += B * sum((mr - 1 - c) * 2 * (nc - c) for c in cols)
-        f["bytes"] += B * (2 * mr * nc + 2 * S) * 8
+        f["bytes"] += B * (2 * mr * nc + 2 * S) * wb
         if w > 0:
-            a = work["panel_apply_packed"]
+            a = work[apply_]
             a["launches"] += 1
             a["elements"] += B * S * 2 * w
-            a["bytes"] += B * (2 * mr * w + 2 * S) * 8
+            a["bytes"] += B * (2 * mr * w + 2 * S) * wb
     return work
 
 
-def tsqr_work(B, m, n, tile_m, compute_q):
+def tsqr_work(B, m, n, tile_m, compute_q, lane="packed"):
     """`panel_route_work` summed over a TSQR call: the leaves, then one
     batch of stacked (2n, n) R pairs per tree level."""
     L = -(-m // tile_m)
-    parts = [panel_route_work(B * L, tile_m, n, n + (tile_m if compute_q else 0))]
+    parts = [panel_route_work(B * L, tile_m, n, n + (tile_m if compute_q else 0),
+                              lane=lane)]
     cur = L
     while cur > 1:
         pairs = cur // 2
         parts.append(panel_route_work(B * pairs, 2 * n, n,
-                                      n + (2 * n if compute_q else 0)))
+                                      n + (2 * n if compute_q else 0),
+                                      lane=lane))
         cur = pairs + cur % 2
     return {name: {key: sum(p[name][key] for p in parts)
                    for key in parts[0][name]} for name in parts[0]}
@@ -451,11 +499,11 @@ def flat_device_phase(device):
 
 
 @contextlib.contextmanager
-def wrapped_panel_kernels(wrap):
-    """Route the panel kernels' wrappers through ``wrap(fn, name)`` inside
-    the block (the panel driver looks them up on `qb` at each call)."""
-    attrs = {"panel_factor_packed": "panel_factor_packed_call",
-             "panel_apply_packed": "panel_apply_packed_call"}
+def wrapped_panel_kernels(wrap, lane="packed"):
+    """Route the panel kernels' wrappers of ``lane`` through
+    ``wrap(fn, name)`` inside the block (the panel loops look them up on
+    `qb` at each call)."""
+    attrs = {name: f"{name}_call" for name in LANES[lane]}
     orig = {name: getattr(qb, attr) for name, attr in attrs.items()}
     for name, attr in attrs.items():
         setattr(qb, attr, wrap(orig[name], name))
@@ -498,116 +546,7 @@ def add_counts(*counts):
     return {name: sum(c[name] for c in counts) for name in COUNTERS}
 
 
-def panel_path(device):
-    """auto -> panel at full width, HUB and IEEE, against the flat kernel."""
-    A = torch.tensor(panel_operand(), device=device)
-    configs = {"hub": GivensConfig(hub=True, n=26), "ieee": GivensConfig(n=26)}
-    engines = {name: _engine(device, g) for name, g in configs.items()}
-    work = panel_route_work(PANEL_BATCH, PANEL_M, PANEL_M, 2 * PANEL_M)
-    captured, results, per_call = {}, {}, {}
-    with wrapped_panel_kernels(capture_first(captured)):
-        t0 = time.perf_counter()
-        for name, eng in engines.items():
-            results[name], per_call[name] = counted_call(eng, A)
-            check_launches(f"panel path {name}", per_call[name], work)
-        wall = time.perf_counter() - t0
-    counts = add_counts(*per_call.values())
-    for name, (Q, R) in results.items():
-        if Q.shape != (PANEL_BATCH, PANEL_M, PANEL_M) or R.shape != Q.shape:
-            fail(f"panel {name}: shapes {tuple(Q.shape)} {tuple(R.shape)}")
-        if torch.count_nonzero(torch.tril(R, -1)).item() != 0:
-            fail(f"panel {name}: R has non-zero entries below the diagonal")
-        Qf, Rf = _engine(device, configs[name], tiling="flat")(A)
-        compare(f"panel {name}: Q against the flat route", Q.view(torch.int64),
-                Qf.view(torch.int64))
-        compare(f"panel {name}: R against the flat route", R.view(torch.int64),
-                Rf.view(torch.int64))
-        resid, orth, worst = qr_errors(A, Q, R)
-        tol = qr_tol(PANEL_M)
-        if not (resid <= tol and orth <= tol):
-            fail(f"panel {name}: |QR-A|/|A| = {resid}, |QtQ-I| = {orth} "
-                 f"(limit {tol})")
-        print(f"panel path {name}: Q {tuple(Q.shape)} R {tuple(R.shape)} "
-              f"bit-equal to the flat route; max |QR-A|/|A| = {resid:.3e}, "
-              f"max |QtQ-I| = {orth:.3e} (matrix {worst}; limit {tol:.0e}; "
-              f"{QR_TOL:.0e} at 32 x 32)", flush=True)
-    print(f"panel path: launches per engine call {per_call}, each as "
-          f"planned; {wall:.3f} s wall (first calls)", flush=True)
-    g = configs["hub"]
-    unit = GivensUnit(g)
-    eye = torch.eye(PANEL_M, dtype=torch.float64, device=device).expand(A.shape)
-    P = unit.encode(torch.cat([A, eye], dim=-1)).contiguous()
-    steps = givens_schedule(PANEL_M, PANEL_M)
-    qb.qr_packed_call(P, cfg=g, steps=steps)                      # warm
-    flat_ms, _ = _event_ms(lambda: qb.qr_packed_call(P, cfg=g, steps=steps), 5)
-    print(f"flat kernel qr_packed on the same hub batch {tuple(P.shape)}: "
-          f"{flat_ms:.3f} ms (median of 5)", flush=True)
-    return dict(counts=counts, per_call=per_call["hub"], captured=captured,
-                A=A, engine=engines["hub"], work=work, flat_ms=flat_ms,
-                flat_shape=list(P.shape))
-
-
-def tsqr_path(device):
-    """auto -> TSQR at full width, with Q, and solve, against the host tree
-    replay on the flat kernel and a float64 least-squares solve."""
-    rng = np.random.default_rng(SEED + 4)
-    A = torch.tensor(rng.normal(size=(TSQR_BATCH, TSQR_M, TSQR_N)), device=device)
-    b = torch.tensor(rng.normal(size=(TSQR_BATCH, TSQR_M)), device=device)
-    g = GivensConfig(hub=True, n=26)
-    eng = _engine(device, g)
-    work = tsqr_work(TSQR_BATCH, TSQR_M, TSQR_N, TSQR_TILE_M, True)
-    solve_work = tsqr_work(TSQR_BATCH, TSQR_M, TSQR_N + 1, TSQR_TILE_M, False)
-    captured = {}
-    with wrapped_panel_kernels(capture_first(captured)):
-        t0 = time.perf_counter()
-        (Q, R), call_counts = counted_call(eng, A)
-        check_launches("tsqr path, engine call", call_counts, work)
-        x, solve_counts = counted_call(eng.solve, A, b)
-        check_launches("tsqr path, solve", solve_counts, solve_work)
-        wall = time.perf_counter() - t0
-    counts = add_counts(call_counts, solve_counts)
-    if Q.shape != (TSQR_BATCH, TSQR_M, TSQR_N) or R.shape != (TSQR_BATCH, TSQR_N, TSQR_N):
-        fail(f"tsqr: shapes {tuple(Q.shape)} {tuple(R.shape)}")
-    if not (torch.isfinite(Q).all() and torch.isfinite(R).all()):
-        fail("tsqr: non-finite factors")
-    if torch.count_nonzero(torch.tril(R, -1)).item() != 0:
-        fail("tsqr: R has non-zero entries below the diagonal")
-    unit = GivensUnit(g)
-    q_diff = 0.0
-    for i in (0, TSQR_BATCH - 1):
-        Qr, Rr = tsqr_host_reference(A[i], lambda X: qr_cordic_pallas(X, unit),
-                                     TSQR_TILE_M)
-        compare(f"tsqr: R of matrix {i} against the host tree on qr_packed",
-                R[i].view(torch.int64), Rr.view(torch.int64))
-        q_diff = max(q_diff, (Q[i] - Qr).abs().max().item())
-    if not q_diff <= 1e-12:
-        fail(f"tsqr: Q differs from the host tree by {q_diff} (limit 1e-12)")
-    resid, orth, _ = qr_errors(A, Q, R)
-    if not (resid <= TSQR_TOL and orth <= TSQR_TOL):
-        fail(f"tsqr: |QR-A|/|A| = {resid}, |QtQ-I| = {orth} (limit {TSQR_TOL})")
-    ref = torch.linalg.lstsq(A, b[..., None]).solution[..., 0]
-    abs_err = (x - ref).abs().max().item()
-    rel_err = (torch.linalg.vector_norm(x - ref, dim=-1)
-               / torch.linalg.vector_norm(ref, dim=-1)).max().item()
-    if not (x.shape == (TSQR_BATCH, TSQR_N) and torch.isfinite(x).all()
-            and abs_err <= TSQR_TOL):
-        fail(f"tsqr solve: max |x - x_lstsq| = {abs_err} (limit {TSQR_TOL})")
-    print(f"tsqr path: Q {tuple(Q.shape)} R {tuple(R.shape)}; R bit-equal to "
-          f"the host tree on qr_packed for matrices 0 and {TSQR_BATCH - 1}, Q "
-          f"within {q_diff:.3e}; max |QR-A|/|A| = {resid:.3e}, max |QtQ-I| = "
-          f"{orth:.3e} (limit {TSQR_TOL})", flush=True)
-    print(f"tsqr solve: x {tuple(x.shape)} max |x-x_lstsq| = {abs_err:.3e} "
-          f"(limit {TSQR_TOL}), max |x-x_lstsq|/|x_lstsq| = {rel_err:.3e} "
-          f"(SOLVE_TOLERANCES['cordic_pallas'] = "
-          f"{SOLVE_TOLERANCES['cordic_pallas']})", flush=True)
-    print(f"tsqr path: launches {call_counts} in the engine call and "
-          f"{solve_counts} in the solve, each as planned; {wall:.3f} s wall "
-          f"(first calls)", flush=True)
-    return dict(counts=counts, per_call=call_counts, captured=captured, A=A,
-                engine=eng, work=work)
-
-
-def tiled_timing(path, eng, A, work, repeats=5):
+def tiled_timing(path, eng, A, work, repeats=5, lane="packed"):
     """Each panel kernel's device time per engine call (CUDA events around
     every launch, summed), median of ``repeats`` warm calls; each call's
     launches, counted from its events, must match the route's plan
@@ -625,9 +564,9 @@ def tiled_timing(path, eng, A, work, repeats=5):
             return out
         return call
 
-    totals = {"panel_factor_packed": [], "panel_apply_packed": []}
+    totals = {name: [] for name in LANES[lane]}
     walls = []
-    with wrapped_panel_kernels(timed):
+    with wrapped_panel_kernels(timed, lane):
         eng(A)                                   # warm
         torch.cuda.synchronize()
         for _ in range(repeats):
@@ -671,14 +610,18 @@ def plain_check(captured, cfg):
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end))
         t0 = time.perf_counter()
-        want = reference(*args, cfg=kw["cfg"])
+        want = reference(*args, **{k: v for k, v in kw.items()
+                                   if k != "tile_b"})
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         compare(f"{name} at its first full-width launch {tuple(args[0].shape)}",
                 got, want)
         if isinstance(got, tuple):
             got, want = got[0], want[0]
-        err = (unit.decode(got) - unit.decode(want)).abs().max().item()
+        if got.dtype == torch.int64:
+            err = (unit.decode(got) - unit.decode(want)).abs().max().item()
+        else:                  # block-FP significands, in units of the LSB
+            err = float((got - want).abs().max().item())
         out[name] = dict(kernel_ms=statistics.median(times), plain_ms=plain_ms,
                          max_abs_err=err, shape=list(args[0].shape))
         print(f"{name} at {tuple(args[0].shape)} ({len(args[1])} steps): "
@@ -710,6 +653,446 @@ def timing_phase(A, As, b, cfg):
                 max_abs_err=max_abs_err, shape=list(P.shape))
 
 
+# ---------------------------------------------------------------------------
+# The int32 block-FP lane: QRDEngine(backend='blockfp_pallas') and engine.rls
+# ---------------------------------------------------------------------------
+#: (hub, iters) of the block-FP parity phase.
+BFP_CONFIGS = ((True, 24), (False, 24), (True, 30), (False, 30))
+
+#: The block-FP lane's tiled limits, the JAX package's own for its panel
+#: and TSQR routes (tests/test_qrd_tiled.py): max |QR - A| and max
+#: |QtQ - I|, elementwise.
+BFP_TILED_RESID, BFP_TILED_ORTH = 2e-3, 1e-3
+
+
+def bfp_words(B, m, e, rng, device, edge=False):
+    """int32 significands of B working tiles, random in [-2^24, 2^24]; with
+    ``edge`` a column at +2^24 in every row (the largest amax), an all-zero
+    column, a -2^24 corner and an all-zero tile."""
+    X = rng.integers(-2 ** 24, 2 ** 24 + 1, size=(B, m, e))
+    if edge:
+        X[:, :, 0] = 2 ** 24
+        X[:, :, e - 1] = 0
+        X[:, -1, min(1, e - 1)] = -2 ** 24
+        X[0] = 0
+    return torch.tensor(X.astype(np.int32), device=device)
+
+
+def check_bfp_flat(X, hub, iters, steps, tile_b=None):
+    """B2 against its plain version on the same words: bit-equal or fail."""
+    out = qb.qr_blockfp_call(X, iters=iters, hub=hub, steps=steps,
+                             tile_b=tile_b)
+    ref = qb.qr_blockfp_reference(X, iters=iters, hub=hub, steps=steps)
+    torch.cuda.synchronize()
+    compare(f"qr_blockfp hub={hub} iters={iters} at {tuple(X.shape)}, "
+            f"tile_b={tile_b}", out, ref)
+    return out
+
+
+def check_bfp_panel_sweep(X, hub, iters, n_cols, pw, tile_b=None):
+    """The block-FP panel route with every B4a/B4b launch held against its
+    plain version, and the result against B2: bit-equal or fail."""
+    m, e = X.shape[-2:]
+    W = X.clone()
+    what = f"hub={hub} iters={iters} at {tuple(X.shape)}, pw={pw}, tile_b={tile_b}"
+    kw = dict(iters=iters, hub=hub)
+    for c0 in range(0, min(n_cols, m - 1), pw):
+        nc = min(pw, n_cols - c0)
+        piv, tgt, col = ops.panel_steps(m - c0, nc)
+        tile = W[:, c0:, c0:c0 + nc]
+        want = qb.panel_factor_blockfp_reference(tile, piv, tgt, col, **kw)
+        got = qb.panel_factor_blockfp_call(tile, piv, tgt, col, tile_b=tile_b,
+                                           **kw)
+        compare(f"panel_factor_blockfp, {what}, panel {c0}", got, want)
+        if c0 + nc < e:
+            T = W[:, c0:, c0 + nc:]
+            want = qb.panel_apply_blockfp_reference(T, piv, tgt, got[1],
+                                                    got[2], **kw)
+            qb.panel_apply_blockfp_call(T, piv, tgt, got[1], got[2], **kw)
+            compare(f"panel_apply_blockfp, {what}, panel {c0}", T, want)
+    flat = qb.qr_blockfp_call(X.contiguous(), steps=givens_schedule(m, n_cols),
+                              **kw)
+    compare(f"block-FP panel route against qr_blockfp, {what}", W, flat)
+
+
+def blockfp_parity_phase(device):
+    """B2, B4a and B4b bit-equal to their plain versions: HUB and
+    conventional, iters 24 and 30, random and edge significands, ragged
+    batches, and B2 on the RLS block schedule."""
+    rng = np.random.default_rng(SEED + 7)
+    n_flat = n_panel = 0
+    for hub, iters in BFP_CONFIGS:
+        shapes = PARITY_SHAPES if iters == 24 else PARITY_SHAPES[:-1]
+        for (m, n, cq) in shapes:
+            e = n + (m if cq else 0)
+            for edge in (False, True):
+                check_bfp_flat(bfp_words(16, m, e, rng, device, edge), hub,
+                               iters, givens_schedule(m, n))
+                n_flat += 1
+        X = bfp_words(5, 6, 10, rng, device)
+        for tile_b in (4, 2):                 # a ragged batch of 5
+            check_bfp_flat(X, hub, iters, givens_schedule(6, 4), tile_b)
+            n_flat += 1
+        for (m, n, cq) in PANEL_PARITY_SHAPES:
+            e = n + (m if cq else 0)
+            for edge in (False, True):
+                X = bfp_words(16, m, e, rng, device, edge)
+                for pw in (3, 8):
+                    check_bfp_panel_sweep(X, hub, iters, n, pw)
+                    n_panel += 1
+        X = bfp_words(5, 10, 14, rng, device)
+        for tile_b in (4, 2):
+            check_bfp_panel_sweep(X, hub, iters, 4, 3, tile_b)
+            n_panel += 1
+    X = bfp_words(16, N_ANT + RLS_BLOCK, N_ANT + 1, rng, device)
+    check_bfp_flat(X, True, 24, ops.rls_block_steps(N_ANT, RLS_BLOCK))
+    n_flat += 1
+    print(f"parity: qr_blockfp bit-equal to qr_blockfp_reference on {n_flat} "
+          f"cases, panel_factor_blockfp and panel_apply_blockfp to theirs at "
+          f"every launch of {n_panel} panel sweeps (each also equal to "
+          f"qr_blockfp); (hub, iters) in {BFP_CONFIGS}, random + edge "
+          f"significands, ragged B=5, RLS schedule "
+          f"rls_block_steps({N_ANT}, {RLS_BLOCK})", flush=True)
+
+
+def snr_db(A, Q, R):
+    """The paper's error metric, as the JAX package's `snr_db` computes it:
+    10 log10(|A|^2 / |A - QR|^2) per matrix (Frobenius norms)."""
+    num = torch.sum(A * A, dim=(-2, -1))
+    den = torch.sum((A - Q @ R) ** 2, dim=(-2, -1))
+    return 10.0 * torch.log10(num / torch.clamp(den, min=1e-300))
+
+
+def max_orth(Q):
+    """Largest |QtQ - I| entry over the batch."""
+    eye = torch.eye(Q.shape[-1], dtype=Q.dtype, device=Q.device)
+    return (Q.transpose(-1, -2) @ Q - eye).abs().max().item()
+
+
+def bfp_engine(device, hub=True, iters=24, **kw):
+    return QRDEngine(backend="blockfp_pallas", dtype="float64",
+                     givens=GivensConfig(hub=hub, n=26), hub=hub, iters=iters,
+                     device=device, **kw)
+
+
+def blockfp_flat_path(device, A, As, b):
+    """QRDEngine(backend='blockfp_pallas') at the main path's shapes: Q, R
+    and solve, on the flat kernel B2."""
+    eng = bfp_engine(device)
+    t0 = time.perf_counter()
+    (Q, R), call_counts = counted_call(eng, A)
+    x, solve_counts = counted_call(eng.solve, As, b)
+    wall = time.perf_counter() - t0
+    want = {name: 1 if name == "qr_blockfp" else 0 for name in COUNTERS}
+    for what, counts in (("engine call", call_counts), ("solve", solve_counts)):
+        if counts != want:
+            fail(f"block-FP flat path, {what}: launches {counts}, expected {want}")
+    if Q.shape != (BATCH, M, M) or R.shape != (BATCH, M, N_COLS):
+        fail(f"block-FP flat: shapes {tuple(Q.shape)} {tuple(R.shape)}")
+    if not (torch.isfinite(Q).all() and torch.isfinite(R).all()):
+        fail("block-FP flat: non-finite factors")
+    if torch.count_nonzero(torch.tril(R, -1)).item() != 0:
+        fail("block-FP flat: R has non-zero entries below the diagonal")
+    snr = snr_db(A, Q, R)
+    orth = max_orth(Q)
+    if not (snr.mean().item() > BFP_SNR_DB and orth < BFP_ORTH_TOL):
+        fail(f"block-FP flat: mean SNR {snr.mean().item()} dB (limit > "
+             f"{BFP_SNR_DB}), max |QtQ-I| {orth} (limit {BFP_ORTH_TOL})")
+    ref = torch.linalg.lstsq(As, b[..., None]).solution[..., 0]
+    sol_err = (torch.linalg.vector_norm(x - ref, dim=-1)
+               / torch.linalg.vector_norm(ref, dim=-1)).max().item()
+    tol = SOLVE_TOLERANCES["blockfp_pallas"]
+    if not (x.shape == (BATCH, N_SOLVE) and torch.isfinite(x).all()
+            and sol_err <= tol):
+        fail(f"block-FP solve: relative error {sol_err} (limit {tol})")
+    print(f"block-FP flat path: Q {tuple(Q.shape)} R {tuple(R.shape)} mean SNR "
+          f"{snr.mean().item():.2f} dB (min {snr.min().item():.2f}; limit > "
+          f"{BFP_SNR_DB}), max |QtQ-I| = {orth:.3e} (limit {BFP_ORTH_TOL}); "
+          f"solve x {tuple(x.shape)} max |x-x_lstsq|/|x_lstsq| = {sol_err:.3e} "
+          f"(limit {tol}); launches {call_counts} in the engine call and "
+          f"{solve_counts} in the solve, each as planned; {wall:.3f} s wall "
+          f"(first calls)", flush=True)
+    return {"flat": call_counts["qr_blockfp"], "solve": solve_counts["qr_blockfp"]}
+
+
+def blockfp_big_phase(device):
+    """B2 at 128 x 128 with Q (a 128 x 256 int32 tile, 128 KiB of shared
+    memory) against the block-FP panel route."""
+    A = torch.tensor(big_operand(), device=device)
+    (Qf, Rf), flat_counts = counted_call(bfp_engine(device, tiling="flat"), A)
+    (Qp, Rp), panel_counts = counted_call(bfp_engine(device), A)  # auto -> panel
+    if flat_counts["qr_blockfp"] != 1 or panel_counts["qr_blockfp"] != 0:
+        fail(f"block-FP 128 x 128: launches flat {flat_counts}, panel "
+             f"{panel_counts}")
+    compare("block-FP 128 x 128: flat against panel route, Q",
+            Qf.view(torch.int64), Qp.view(torch.int64))
+    compare("block-FP 128 x 128: flat against panel route, R",
+            Rf.view(torch.int64), Rp.view(torch.int64))
+    snr, orth = snr_db(A, Qf, Rf), max_orth(Qf)
+    print(f"block-FP flat route at {tuple(A.shape)} with Q: tile {BIG_M} x "
+          f"{2 * BIG_M} int32 ({BIG_M * 2 * BIG_M * 4} B of shared memory); Q "
+          f"and R bit-equal to the panel route; mean SNR "
+          f"{snr.mean().item():.2f} dB, max |QtQ-I| = {orth:.3e}", flush=True)
+
+
+#: The two lanes of the tiled paths: the engine variants of the panel path
+#: (their ``hub`` argument), the flat kernel that is the panel route's
+#: reference and the TSQR host tree's node, and the backend whose
+#: SOLVE_TOLERANCES entry the TSQR solve is read against.
+PATH_LANES = {
+    "packed": dict(label="", variants={"hub": True, "ieee": False},
+                   flat="qr_packed", backend="cordic_pallas"),
+    "blockfp": dict(label="block-FP ", variants={"hub": True, "conv": False},
+                    flat="qr_blockfp", backend="blockfp_pallas"),
+}
+
+
+def lane_engine(lane, device, hub=True, **kw):
+    """The lane's QRDEngine: N = 26, and iters 24 on the block-FP lane."""
+    if lane == "packed":
+        return _engine(device, GivensConfig(hub=hub, n=26), **kw)
+    return bfp_engine(device, hub=hub, **kw)
+
+
+def lane_node_qr(lane):
+    """The lane's flat QR (HUB), the TSQR host tree's node factorization."""
+    if lane == "packed":
+        unit = GivensUnit(GivensConfig(hub=True, n=26))
+        return lambda X: qr_cordic_pallas(X, unit)
+    return lambda X: qr_blockfp_pallas(X, iters=24, hub=True)
+
+
+def lane_errors(lane, route, A, Q, R):
+    """A tiled route's factor errors against the lane's limits: per matrix
+    on the packed lane (Frobenius norms; `qr_tol` on the panel route,
+    `TSQR_TOL` through TSQR), elementwise on the block-FP lane, as the JAX
+    package's tiled tests hold it.  Returns (within the limits, text)."""
+    if lane == "packed":
+        tol = qr_tol(PANEL_M) if route == "panel" else TSQR_TOL
+        resid, orth, worst = qr_errors(A, Q, R)
+        return (resid <= tol and orth <= tol,
+                f"max |QR-A|/|A| = {resid:.3e}, max |QtQ-I| = {orth:.3e} "
+                f"(matrix {worst}; limit {tol:.0e}; {QR_TOL:.0e} at 32 x 32)")
+    resid, orth = (Q @ R - A).abs().max().item(), max_orth(Q)
+    return (resid < BFP_TILED_RESID and orth < BFP_TILED_ORTH,
+            f"mean SNR {snr_db(A, Q, R).mean().item():.2f} dB, max |QR-A| = "
+            f"{resid:.3e} (limit {BFP_TILED_RESID}), max |QtQ-I| = {orth:.3e} "
+            f"(limit {BFP_TILED_ORTH})")
+
+
+def flat_kernel_ms(lane, A):
+    """The lane's flat kernel on the HUB words of [A | I], warm, median of
+    5: the flat kernel's time beside the panel kernels' on one batch."""
+    m, n = A.shape[-2:]
+    eye = torch.eye(m, dtype=torch.float64, device=A.device).expand(
+        *A.shape[:-1], m)
+    W = torch.cat([A, eye], dim=-1)
+    steps = givens_schedule(m, n)
+    if lane == "packed":
+        g = GivensConfig(hub=True, n=26)
+        P = GivensUnit(g).encode(W).contiguous()
+        call = lambda: qb.qr_packed_call(P, cfg=g, steps=steps)  # noqa: E731
+    else:
+        P = ops._blockfp_encode(W, 24)[0].contiguous()
+        call = lambda: qb.qr_blockfp_call(P, iters=24, hub=True,  # noqa: E731
+                                          steps=steps)
+    call()                                                        # warm
+    ms, _ = _event_ms(call, 5)
+    return ms, list(P.shape)
+
+
+def panel_path(device, lane):
+    """auto -> panel at full width with Q, both datapaths of ``lane``,
+    against the lane's flat route on the same batch."""
+    spec = PATH_LANES[lane]
+    label = spec["label"]
+    A = torch.tensor(panel_operand(), device=device)
+    engines = {name: lane_engine(lane, device, hub=hub)
+               for name, hub in spec["variants"].items()}
+    work = panel_route_work(PANEL_BATCH, PANEL_M, PANEL_M, 2 * PANEL_M,
+                            lane=lane)
+    captured, results, per_call = {}, {}, {}
+    with wrapped_panel_kernels(capture_first(captured), lane):
+        t0 = time.perf_counter()
+        for name, eng in engines.items():
+            results[name], per_call[name] = counted_call(eng, A)
+            check_launches(f"{label}panel path {name}", per_call[name], work)
+        wall = time.perf_counter() - t0
+    for name, (Q, R) in results.items():
+        if Q.shape != (PANEL_BATCH, PANEL_M, PANEL_M) or R.shape != Q.shape:
+            fail(f"{label}panel {name}: shapes {tuple(Q.shape)} {tuple(R.shape)}")
+        if torch.count_nonzero(torch.tril(R, -1)).item() != 0:
+            fail(f"{label}panel {name}: R has non-zero entries below the "
+                 f"diagonal")
+        Qf, Rf = lane_engine(lane, device, hub=spec["variants"][name],
+                             tiling="flat")(A)
+        compare(f"{label}panel {name}: Q against the flat route",
+                Q.view(torch.int64), Qf.view(torch.int64))
+        compare(f"{label}panel {name}: R against the flat route",
+                R.view(torch.int64), Rf.view(torch.int64))
+        ok, text = lane_errors(lane, "panel", A, Q, R)
+        if not ok:
+            fail(f"{label}panel {name}: {text}")
+        print(f"{label}panel path {name}: Q {tuple(Q.shape)} R "
+              f"{tuple(R.shape)} bit-equal to the flat route; {text}",
+              flush=True)
+    print(f"{label}panel path: launches per engine call {per_call}, each as "
+          f"planned; {wall:.3f} s wall (first calls)", flush=True)
+    flat_ms, flat_shape = flat_kernel_ms(lane, A)
+    print(f"flat kernel {spec['flat']} on the same hub batch "
+          f"{tuple(flat_shape)}: {flat_ms:.3f} ms (median of 5)", flush=True)
+    return dict(counts=add_counts(*per_call.values()), per_call=per_call["hub"],
+                captured=captured, A=A, engine=engines["hub"], work=work,
+                flat_ms=flat_ms, flat_shape=flat_shape)
+
+
+def tsqr_path(device, lane):
+    """auto -> TSQR at full width with Q, and solve, against the host tree
+    replay on the lane's flat kernel and a float64 least-squares solve."""
+    spec = PATH_LANES[lane]
+    label = spec["label"]
+    A, b = (torch.tensor(a, device=device) for a in tsqr_operands())
+    eng = lane_engine(lane, device)
+    work = tsqr_work(TSQR_BATCH, TSQR_M, TSQR_N, TSQR_TILE_M, True, lane)
+    solve_work = tsqr_work(TSQR_BATCH, TSQR_M, TSQR_N + 1, TSQR_TILE_M, False,
+                           lane)
+    captured = {}
+    with wrapped_panel_kernels(capture_first(captured), lane):
+        t0 = time.perf_counter()
+        (Q, R), call_counts = counted_call(eng, A)
+        check_launches(f"{label}tsqr path, engine call", call_counts, work)
+        x, solve_counts = counted_call(eng.solve, A, b)
+        check_launches(f"{label}tsqr path, solve", solve_counts, solve_work)
+        wall = time.perf_counter() - t0
+    if Q.shape != (TSQR_BATCH, TSQR_M, TSQR_N) or R.shape != (TSQR_BATCH, TSQR_N, TSQR_N):
+        fail(f"{label}tsqr: shapes {tuple(Q.shape)} {tuple(R.shape)}")
+    if not (torch.isfinite(Q).all() and torch.isfinite(R).all()):
+        fail(f"{label}tsqr: non-finite factors")
+    if torch.count_nonzero(torch.tril(R, -1)).item() != 0:
+        fail(f"{label}tsqr: R has non-zero entries below the diagonal")
+    node_qr = lane_node_qr(lane)
+    q_diff = 0.0
+    for i in (0, TSQR_BATCH - 1):
+        Qr, Rr = tsqr_host_reference(A[i], node_qr, TSQR_TILE_M)
+        compare(f"{label}tsqr: R of matrix {i} against the host tree on "
+                f"{spec['flat']}", R[i].view(torch.int64), Rr.view(torch.int64))
+        q_diff = max(q_diff, (Q[i] - Qr).abs().max().item())
+    if not q_diff <= 1e-12:
+        fail(f"{label}tsqr: Q differs from the host tree by {q_diff} "
+             f"(limit 1e-12)")
+    ok, text = lane_errors(lane, "tsqr", A, Q, R)
+    if not ok:
+        fail(f"{label}tsqr: {text}")
+    ref = torch.linalg.lstsq(A, b[..., None]).solution[..., 0]
+    abs_err = (x - ref).abs().max().item()
+    rel = (torch.linalg.vector_norm(x - ref, dim=-1)
+           / torch.linalg.vector_norm(ref, dim=-1))
+    if not (x.shape == (TSQR_BATCH, TSQR_N) and torch.isfinite(x).all()
+            and abs_err <= TSQR_TOL):
+        fail(f"{label}tsqr solve: max |x - x_lstsq| = {abs_err} (limit "
+             f"{TSQR_TOL})")
+    tol = SOLVE_TOLERANCES[spec["backend"]]
+    rel_max = rel.max().item()
+    print(f"{label}tsqr path: Q {tuple(Q.shape)} R {tuple(R.shape)}; R "
+          f"bit-equal to the host tree on {spec['flat']} for matrices 0 and "
+          f"{TSQR_BATCH - 1}, Q within {q_diff:.3e}; {text}", flush=True)
+    print(f"{label}tsqr solve: x {tuple(x.shape)} max |x-x_lstsq| = "
+          f"{abs_err:.3e} (limit {TSQR_TOL}, borrowed from the JAX package's "
+          f"cordic_pallas TSQR solve test); max |x-x_lstsq|/|x_lstsq| = "
+          f"{rel_max:.3e} (matrix {int(rel.argmax())}) against "
+          f"SOLVE_TOLERANCES['{spec['backend']}'] = {tol}: "
+          f"{'met' if rel_max <= tol else 'UNMET (reported, not gated)'}",
+          flush=True)
+    print(f"{label}tsqr path: launches {call_counts} in the engine call and "
+          f"{solve_counts} in the solve, each as planned; {wall:.3f} s wall "
+          f"(first calls)", flush=True)
+    return dict(counts=add_counts(call_counts, solve_counts),
+                per_call=call_counts, captured=captured, A=A, engine=eng,
+                work=work)
+
+
+def rls_phase(device):
+    """engine.rls at the beamformer's size: the carried state on the card
+    bit-equal to the same state on the CPU, and its weights near float
+    mode's."""
+    rng = np.random.default_rng(SEED + 8)
+    w_true = rng.normal(size=N_ANT)
+    xs = rng.normal(size=(SNAPSHOTS, N_ANT))
+    ds = xs @ w_true + 0.01 * rng.normal(size=SNAPSHOTS)
+    states = {where: QRDEngine(backend="blockfp_pallas", dtype="float64",
+                               givens=GivensConfig(hub=True, n=26),
+                               device=where).rls(N_ANT, lam=LAMBDA)
+              for where in (device, "cpu")}
+    reset_counts()
+    t0 = time.perf_counter()
+    for x, d in zip(xs, ds):
+        states[device].update(x, d)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    for x, d in zip(xs, ds):
+        states["cpu"].update(x, d)
+    flushes = SNAPSHOTS // RLS_BLOCK
+    want = {name: flushes if name == "qr_blockfp" else 0 for name in COUNTERS}
+    if counts != want:
+        fail(f"rls: launches {counts}, expected {want} ({flushes} flushes)")
+    gpu, cpu = states[device], states["cpu"]
+    if gpu._pending or gpu.block != RLS_BLOCK or gpu.mode != "block":
+        fail(f"rls: mode {gpu.mode}, block {gpu.block}, {len(gpu._pending)} pending")
+    compare("rls: R on the card against the CPU", gpu.R.cpu().view(torch.int64),
+            cpu.R.view(torch.int64))
+    compare("rls: z on the card against the CPU", gpu.z.cpu().view(torch.int64),
+            cpu.z.view(torch.int64))
+    w_gpu, w_cpu = gpu.weights().cpu(), cpu.weights()
+    w_diff = (w_gpu - w_cpu).abs().max().item()
+    flt = RLSState(N_ANT, lam=LAMBDA, mode="float", device="cpu")
+    for x, d in zip(xs, ds):
+        flt.update(x, d)
+    f_diff = (w_gpu - flt.weights()).abs().max().item()
+    err = np.linalg.norm(w_gpu.numpy() - w_true)
+    if not (w_diff <= 1e-12 and f_diff <= RLS_TOL):
+        fail(f"rls: weights card vs CPU {w_diff} (limit 1e-12), vs float mode "
+             f"{f_diff} (limit {RLS_TOL})")
+    print(f"rls: engine.rls({N_ANT}, lam={LAMBDA}) block {RLS_BLOCK}, "
+          f"{SNAPSHOTS} snapshots: R and z on the card bit-equal to the CPU "
+          f"state; weights within {w_diff:.3e} of the CPU's (limit 1e-12) and "
+          f"{f_diff:.3e} of float mode's (limit {RLS_TOL}); |w - w_true| = "
+          f"{err:.3e}; {counts['qr_blockfp']} qr_blockfp launches for "
+          f"{flushes} flushes; {wall:.3f} s wall on the card", flush=True)
+    return counts["qr_blockfp"]
+
+
+def bfp_bound(hub, iters, elements, nbytes):
+    """Least time for block-FP work: int32 operations over the SM's issue
+    rate, against the bytes moved at HBM bandwidth."""
+    per_elem = OPS_BFP_MICROROTATION[hub] * iters + OPS_BFP_GAIN + OPS_BFP_FLIP
+    ops_ms = elements * per_elem / INT_OPS_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def blockfp_timing_phase(A):
+    """B2 and its plain version at the main path's shape, same words."""
+    eye = torch.eye(M, dtype=torch.float64, device=A.device).expand(BATCH, M, M)
+    X, _ = ops._blockfp_encode(torch.cat([A, eye], dim=-1), 24)
+    X = X.contiguous()
+    steps = givens_schedule(M, N_COLS)
+    kw = dict(iters=24, hub=True, steps=steps)
+    qb.qr_blockfp_call(X, **kw)                                    # warm
+    ms, out = _event_ms(lambda: qb.qr_blockfp_call(X, **kw), 5)
+    plain_ms, ref = _event_ms(lambda: qb.qr_blockfp_reference(X, **kw), 1)
+    compare("qr_blockfp at the main-path shape", out, ref)
+    e = M + N_COLS
+    bound_ms, bound_by = bfp_bound(True, 24, BATCH * active_elements(M, N_COLS, e),
+                                   2 * BATCH * M * e * 4)
+    print(f"timing qr_blockfp at {tuple(X.shape)} int32, {len(steps)} steps: "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.3f} ms "
+          f"({bound_by})", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=float((out - ref).abs().max().item()),
+                shape=list(X.shape))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one GPU",
@@ -730,7 +1113,7 @@ def main():
 def run(device):
     """Every phase on ``device``; returns 0 or exits non-zero."""
     t0 = time.perf_counter()
-    sources = ["qr_packed", "panel_packed"]
+    sources = ["qr_packed", "panel_packed", "blockfp"]
     _build.build(sources)                      # one nvcc each, in parallel
     print(f"build: {', '.join(s + '.cu' for s in sources)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -743,14 +1126,29 @@ def run(device):
     big = flat_device_phase(device)
     launches, A, As, b, cfg = main_path(device)
     timing = timing_phase(A, As, b, cfg)
-    panel = panel_path(device)
-    tsqr = tsqr_path(device)
+    panel = panel_path(device, "packed")
+    tsqr = tsqr_path(device, "packed")
     panel_ms, panel_wall = tiled_timing("panel path", panel["engine"],
                                         panel["A"], panel["work"])
     tsqr_ms, tsqr_wall = tiled_timing("tsqr path", tsqr["engine"], tsqr["A"],
                                       tsqr["work"])
     plain = {"panel": plain_check(panel["captured"], cfg),
              "tsqr": plain_check(tsqr["captured"], cfg)}
+
+    blockfp_parity_phase(device)
+    bfp_flat = blockfp_flat_path(device, A, As, b)
+    bfp_timing = blockfp_timing_phase(A)
+    blockfp_big_phase(device)
+    bfp_panel = panel_path(device, "blockfp")
+    bfp_tsqr = tsqr_path(device, "blockfp")
+    bfp_rls_launches = rls_phase(device)
+    bfp_panel_ms, bfp_panel_wall = tiled_timing(
+        "block-FP panel path", bfp_panel["engine"], bfp_panel["A"],
+        bfp_panel["work"], lane="blockfp")
+    bfp_tsqr_ms, bfp_tsqr_wall = tiled_timing(
+        "block-FP tsqr path", bfp_tsqr["engine"], bfp_tsqr["A"],
+        bfp_tsqr["work"], lane="blockfp")
+    bfp_plain = plain_check(bfp_panel["captured"], cfg)
 
     kernels = [{
         "name": "qr_packed",
@@ -816,8 +1214,78 @@ def run(device):
             "tsqr_kernel_ms_same_launch": plain["tsqr"][name]["kernel_ms"],
             "config": "hub n=26 iters=24",
         })
+    kernels.append({
+        "name": "qr_blockfp",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/blockfp.cu",
+        "replaces": "src/repro/kernels/qrd_blocked.py:668",
+        "replaces_function": "qr_blockfp_call / _qr_blockfp_kernel",
+        "launches": bfp_flat["flat"] + bfp_flat["solve"],
+        "launches_by_path": {"flat": bfp_flat["flat"] + bfp_flat["solve"],
+                             "rls": bfp_rls_launches},
+        "launches_per_engine_call": {
+            "flat": bfp_flat["flat"], "solve": bfp_flat["solve"],
+            "rls_flush": bfp_rls_launches / (SNAPSHOTS // RLS_BLOCK)},
+        "parity": "bit-equal",
+        "max_abs_err": bfp_timing["max_abs_err"],
+        "ms": bfp_timing["ms"],
+        "plain_ms": bfp_timing["plain_ms"],
+        "bound_ms": bfp_timing["bound_ms"],
+        "bound_by": bfp_timing["bound_by"],
+        "library_ms": None,
+        "shape": bfp_timing["shape"],
+        "config": "hub iters=24 frac=24",
+        "packed_lane_ms_same_shape": timing["ms"],
+        "panel_shape_ms": bfp_panel["flat_ms"],
+        "panel_shape": bfp_panel["flat_shape"],
+        "packed_lane_panel_shape_ms": panel["flat_ms"],
+    })
+    bfp_replaces = {"panel_factor_blockfp": ("src/repro/kernels/qrd_blocked.py:917",
+                                             "panel_factor_blockfp_call / "
+                                             "_panel_factor_blockfp_kernel",
+                                             "panel_factor_packed"),
+                    "panel_apply_blockfp": ("src/repro/kernels/qrd_blocked.py:968",
+                                            "panel_apply_blockfp_call / "
+                                            "_panel_apply_blockfp_kernel",
+                                            "panel_apply_packed")}
+    for name, (where, function, twin) in bfp_replaces.items():
+        bound_ms, bound_by = bfp_bound(True, 24, bfp_panel["work"][name]["elements"],
+                                       bfp_panel["work"][name]["bytes"])
+        tsqr_bound_ms, _ = bfp_bound(True, 24, bfp_tsqr["work"][name]["elements"],
+                                     bfp_tsqr["work"][name]["bytes"])
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/blockfp.cu",
+            "replaces": where,
+            "replaces_function": function,
+            "launches": bfp_panel["counts"][name] + bfp_tsqr["counts"][name],
+            "launches_by_path": {"panel": bfp_panel["counts"][name],
+                                 "tsqr": bfp_tsqr["counts"][name]},
+            "launches_per_engine_call": {"panel": bfp_panel["per_call"][name],
+                                         "tsqr": bfp_tsqr["per_call"][name]},
+            "parity": "bit-equal",
+            "max_abs_err": bfp_plain[name]["max_abs_err"],
+            "ms": bfp_panel_ms[name],
+            "plain_ms": bfp_plain[name]["plain_ms"],
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,
+            "shape": [PANEL_BATCH, PANEL_M, PANEL_M],
+            "ms_is": "kernel total per engine call, panel path, median of 5",
+            "plain_ms_is": "one launch, the first of the panel path",
+            "plain_shape": bfp_plain[name]["shape"],
+            "kernel_ms_same_launch": bfp_plain[name]["kernel_ms"],
+            "tsqr_ms": bfp_tsqr_ms[name],
+            "tsqr_bound_ms": tsqr_bound_ms,
+            "tsqr_shape": [TSQR_BATCH, TSQR_M, TSQR_N],
+            "packed_lane_ms_same_shape": panel_ms[twin],
+            "packed_lane_tsqr_ms": tsqr_ms[twin],
+            "config": "hub iters=24 frac=24",
+        })
     print(f"engine call host wall: panel path {panel_wall:.3f} ms, tsqr path "
-          f"{tsqr_wall:.3f} ms", flush=True)
+          f"{tsqr_wall:.3f} ms; block-FP panel path {bfp_panel_wall:.3f} ms, "
+          f"tsqr path {bfp_tsqr_wall:.3f} ms", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

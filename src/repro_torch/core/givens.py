@@ -6,7 +6,8 @@ converter, on packed int64 words.
   rotate(x, y, state)     -> (x', y')         # rotation: replay the angle
 
 Both are vectorized over any batch shape; `rotate` broadcasts one state over
-a trailing axis of row elements.  The complex methods of the JAX unit come
+a trailing axis of row elements.  `annihilate` is the pivot-anywhere step of
+QRD-RLS.  The complex methods of the JAX unit come
 with the complex datapath (ROADMAP A9).
 """
 from __future__ import annotations
@@ -121,3 +122,28 @@ class GivensUnit:
                              (flip[..., None], sig[..., None]))
         return (torch.cat([rx0[..., None], rx], dim=-1),
                 torch.cat([ry0[..., None], ry], dim=-1))
+
+    def annihilate(self, row_x, row_y, col):
+        """Givens-rotate two packed rows so ``row_y[col]`` is zeroed.
+
+        The pivot-anywhere form of `rotate_rows`, the step of the QRD-RLS
+        unit mode (`repro_torch.qrd.rls.RLSState`): the rows are rolled so
+        the pivot column leads, rotated (vectoring on the pivot pair, sigma
+        replayed across the rest), the annihilated entry forced to the
+        structural packed zero, and rolled back.
+
+        Parameters
+        ----------
+        row_x, row_y : (..., e) int64 packed FP words — pivot and target row.
+        col : int — pivot column; ``row_y[..., col]`` is annihilated against
+            ``row_x[..., col]``.
+
+        Returns
+        -------
+        (row_x', row_y') packed rows with ``row_y'[..., col] == 0``.
+        """
+        rx = torch.roll(row_x, -col, dims=-1)
+        ry = torch.roll(row_y, -col, dims=-1)
+        ox, oy = self.rotate_rows(rx, ry)
+        oy[..., 0] = 0              # the zeroed entry is structural
+        return torch.roll(ox, col, dims=-1), torch.roll(oy, col, dims=-1)

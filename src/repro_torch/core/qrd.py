@@ -3,8 +3,8 @@
 
 An m x n input is triangularized by the column-major Givens schedule, and
 Q is obtained by augmenting the rows with the identity (the 1.0 entries of
-I enter the unit as data).  Three routines, bit-identical to each other and
-to `repro.core.qrd`:
+I enter the unit as data).  Three routines on packed words, bit-identical
+to each other and to `repro.core.qrd`:
 
   `qr_cordic`         the host loop: the plain PyTorch version of the kernel
   `qr_cordic_pallas`  the kernel: every schedule step on one resident tile
@@ -13,8 +13,15 @@ to `repro.core.qrd`:
                       words are replayed over the trailing columns
                       (`repro_torch.kernels.ops.qr_packed_panel`)
 
-The name ``cordic_pallas`` is kept so configurations carry over between
-the two packages; on the GPU it is the CUDA kernel `csrc/qr_packed.cu`.
+and two on the int32 block-FP fast path, bit-identical to each other:
+
+  `qr_blockfp_pallas` quantize once, every step in one kernel, decode once
+                      (`repro_torch.kernels.ops.givens_block_apply`)
+  `qr_blockfp_panel`  its panel route
+                      (`repro_torch.kernels.ops.givens_block_apply_panel`)
+
+The names ``*_pallas`` are kept so configurations carry over between the
+two packages; on the GPU they are the CUDA kernels of ``kernels/csrc``.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import torch
 from .givens import GivensUnit
 
 __all__ = ["qr_cordic", "qr_cordic_pallas", "qr_cordic_panel",
+           "qr_blockfp_pallas", "qr_blockfp_panel",
            "givens_schedule", "sameh_kuck_schedule"]
 
 #: Bound on the host-side schedule memoization.
@@ -166,4 +174,67 @@ def qr_cordic_panel(A, unit: GivensUnit, compute_q=True, panel_n=8,
     P = unit.encode(_augment(A, compute_q))
     out = unit.decode(ops.qr_packed_panel(P, cfg=unit.cfg, n_cols=n,
                                           panel_n=panel_n, tile_b=tile_b))
+    return _split_qr(out, m, n, compute_q)
+
+
+def qr_blockfp_pallas(A, compute_q=True, iters=24, hub=True, frac=24,
+                      steps=None, tile_b=None):
+    """Blocked QRD on the int32 block-FP kernel (the fast path).
+
+    The working matrix is quantized once to per-column block fixed point,
+    every rotation step runs in int32 inside one kernel launch, and a
+    single decode at the end recovers floats.  Not bit-identical to
+    `qr_cordic` (Q30 gain, no per-step renormalization): the accuracy is
+    that of an F-fraction-bit fixed-point datapath per column.  On a CUDA
+    tensor this launches `csrc/blockfp.cu`; on a CPU tensor it runs the
+    kernel's plain PyTorch version.
+
+    Parameters
+    ----------
+    A : (..., m, n) tensor or array_like, converted to float64.
+    compute_q : bool — augment the rows with the identity to accumulate Qᵀ.
+    iters, hub, frac : CORDIC depth (at most 30), HUB or conventional
+        arithmetic, fraction bits (F = 24 holds m up to 128 inside int32).
+    steps : sequence[(int, int, int)], optional — defaults to column-major.
+    tile_b : int, optional — matrices per CUDA block.
+
+    Returns
+    -------
+    (Q, R) : float64 tensors (Q is None when ``compute_q=False``).
+    """
+    from repro_torch.kernels import ops
+
+    A = torch.as_tensor(A, dtype=torch.float64)
+    m, n = A.shape[-2], A.shape[-1]
+    if steps is None:
+        steps = givens_schedule(m, n)
+    out = ops.givens_block_apply(_augment(A, compute_q), tuple(steps),
+                                 iters=iters, hub=hub, frac=frac,
+                                 tile_b=tile_b)
+    return _split_qr(out, m, n, compute_q)
+
+
+def qr_blockfp_panel(A, compute_q=True, iters=24, hub=True, frac=24,
+                     panel_n=8, tile_b=None):
+    """Tiled panel QRD on the int32 block-FP datapath.
+
+    The scaling form of `qr_blockfp_pallas`: quantize once, sweep the
+    panels with exported and replayed control words, decode once
+    (`repro_torch.kernels.ops.givens_block_apply_panel`).  Bit-identical to
+    `qr_blockfp_pallas` with the default schedule.
+
+    Parameters as `qr_blockfp_pallas` plus ``panel_n`` (panel width);
+    ``tile_b`` is the number of panels per CUDA block of the factorization.
+
+    Returns
+    -------
+    (Q, R) : float64 tensors (Q is None when ``compute_q=False``).
+    """
+    from repro_torch.kernels import ops
+
+    A = torch.as_tensor(A, dtype=torch.float64)
+    m, n = A.shape[-2], A.shape[-1]
+    out = ops.givens_block_apply_panel(_augment(A, compute_q), n_cols=n,
+                                       iters=iters, hub=hub, frac=frac,
+                                       panel_n=panel_n, tile_b=tile_b)
     return _split_qr(out, m, n, compute_q)

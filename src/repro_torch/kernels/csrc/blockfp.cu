@@ -1,0 +1,165 @@
+// Blocked QR over int32 block-FP significands: the flat kernel, the panel
+// factorization that exports each rotation's control word, and the replay
+// of those words over the trailing columns.  Bit-exact to the plain
+// versions in repro_torch/kernels/qrd_blocked.py.
+//
+// Replaces: src/repro/kernels/qrd_blocked.py,
+//   _qr_blockfp_kernel / qr_blockfp_call (B2),
+//   _panel_factor_blockfp_kernel / panel_factor_blockfp_call (B4a) and
+//   _panel_apply_blockfp_kernel / panel_apply_blockfp_call (B4b); their
+//   bodies are cordic_givens.fused_rotate_block, fused_rotate_ctrl and
+//   fused_replay.
+//
+// What it computes:
+//  * qr_blockfp: for each (k, j, col) step of a schedule read at run time
+//    (column-major, the RLS annihilation order, or any other), the fused
+//    step on rows k and j from column col, then the target lead forced to
+//    0.  Equal to qr_blockfp_reference.
+//  * panel_factor_blockfp: the same step loop on an mr x pw panel, writing
+//    each step's (flip, sigma) as int32 into the (B, S) outputs.  Equal to
+//    panel_factor_blockfp_reference: the JAX body rotates at uniform width
+//    and restores the lanes left of the lead; here those lanes are simply
+//    not touched.
+//  * panel_apply_blockfp: every (piv, tgt, flip, sigma) step replayed on
+//    the trailing mr x w region.  Equal to panel_apply_blockfp_reference.
+// Panel by panel the last two run the flat kernel's column-major steps in
+// the same order, so their words equal its words.
+//
+// Bound on this card: integer operations.  A rotated element costs about
+// 11 int32 operations per micro-rotation (HUB) and 12 for the gain
+// compensation, some 280 at iters = 24, against one 4-byte read and one
+// write of each significand for the whole factorization.
+//
+// Design (simple first; speed is later work):
+//  * qr_blockfp: one block holds `tile_b` matrices (blockDim.y), each m x e
+//    tile in dynamic shared memory for the whole factorization.  On the
+//    routes resolve_route allows, the largest tile is 128 x 256 int32
+//    (128 KiB), under a block's 227 KB, so there is no device-memory mode;
+//    the wrapper caps tile_b to shared memory and refuses a larger one.
+//  * The step loop is bfp::factor_tile (blockfp_unit.cuh): threads of a row
+//    (blockDim.x) stride over the elements col..e-1; each thread runs the
+//    lead's vectoring itself, then replays the control word on its own
+//    elements in place; two barriers a step.
+//  * panel_factor_blockfp and panel_apply_blockfp work in place on
+//    row-strided views of the (B, m, e) working buffer (batch stride sb,
+//    row stride ld, unit column stride), as panel_packed.cu does.  The
+//    apply gives one thread one column of one matrix for all S steps, with
+//    no barrier.
+#include <cuda_runtime.h>
+
+#include "blockfp_unit.cuh"
+
+using bfp::i32;
+using bfp::Params;
+
+__global__ void qr_blockfp_kernel(const i32* __restrict__ in, i32* out,
+                                  const int* __restrict__ steps, int B, int m,
+                                  int e, int S, Params u) {
+  extern __shared__ i32 tiles[];
+  const long long me = (long long)m * e;
+  const long long b = (long long)blockIdx.x * blockDim.y + threadIdx.y;
+  const bool live = b < B;  // the ragged edge of the last block
+  i32* T = tiles + threadIdx.y * me;
+  if (live) bfp::copy_tile(T, e, in + b * me, e, m, e);
+  __syncthreads();
+  bfp::factor_tile(T, e, e, steps, steps + 1, steps + 2, 3, S, live, u,
+                   nullptr, nullptr);
+  if (live) bfp::copy_tile(out + b * me, e, T, e, m, e);
+}
+
+__global__ void panel_factor_blockfp_kernel(
+    i32* P, long long sb, long long ld, int B, int mr, int pw,
+    const int* __restrict__ piv, const int* __restrict__ tgt,
+    const int* __restrict__ col, int S, i32* __restrict__ flip,
+    i32* __restrict__ sig, Params u) {
+  extern __shared__ i32 tiles[];
+  const long long b = (long long)blockIdx.x * blockDim.y + threadIdx.y;
+  const bool live = b < B;  // the ragged edge of the last block
+  i32* src = P + (live ? b : 0) * sb;
+  i32* T = tiles + (long long)threadIdx.y * mr * pw;
+  if (live) bfp::copy_tile(T, pw, src, ld, mr, pw);
+  __syncthreads();
+  bfp::factor_tile(T, pw, pw, piv, tgt, col, 1, S, live, u,
+                   flip + (live ? b : 0) * S, sig + (live ? b : 0) * S);
+  if (live) bfp::copy_tile(src, ld, T, pw, mr, pw);
+}
+
+__global__ void panel_apply_blockfp_kernel(i32* P, long long sb, long long ld,
+                                           int w, const int* __restrict__ piv,
+                                           const int* __restrict__ tgt, int S,
+                                           const i32* __restrict__ flip,
+                                           const i32* __restrict__ sig,
+                                           Params u) {
+  const long long b = blockIdx.x;
+  const int c = blockIdx.y * blockDim.x + threadIdx.x;
+  if (c >= w) return;
+  i32* T = P + b * sb + c;
+  const i32* f = flip + b * S;
+  const i32* g = sig + b * S;
+  for (int s = 0; s < S; ++s) {
+    i32* px = T + __ldg(piv + s) * ld;
+    i32* py = T + __ldg(tgt + s) * ld;
+    i32 x = *px, y = *py;
+    bfp::replay(x, y, u, __ldg(f + s), __ldg(g + s));
+    *px = x;
+    *py = y;
+  }
+}
+
+extern "C" {
+
+// Each launches on `stream` and returns the CUDA error of the launch (0 on
+// success).
+int qr_blockfp_launch(const void* in, void* out, const void* steps, int B,
+                      int m, int e, int S, int tile_b, int threads_x,
+                      int iters, int hub, int comp, void* stream) {
+  const Params u = {iters, hub, comp};
+  const dim3 block(threads_x, tile_b);
+  const dim3 grid((B + tile_b - 1) / tile_b);
+  const size_t smem = (size_t)tile_b * m * e * sizeof(i32);
+  cudaError_t err = cudaFuncSetAttribute(
+      qr_blockfp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  qr_blockfp_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+      (const i32*)in, (i32*)out, (const int*)steps, B, m, e, S, u);
+  return (int)cudaGetLastError();
+}
+
+int panel_factor_blockfp_launch(void* P, long long sb, long long ld, int B,
+                                int mr, int pw, const void* piv,
+                                const void* tgt, const void* col, int S,
+                                void* flip, void* sig, int tile_b,
+                                int threads_x, int iters, int hub, int comp,
+                                void* stream) {
+  const Params u = {iters, hub, comp};
+  const dim3 block(threads_x, tile_b);
+  const dim3 grid((B + tile_b - 1) / tile_b);
+  const size_t smem = (size_t)tile_b * mr * pw * sizeof(i32);
+  cudaError_t err = cudaFuncSetAttribute(
+      panel_factor_blockfp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  panel_factor_blockfp_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+      (i32*)P, sb, ld, B, mr, pw, (const int*)piv, (const int*)tgt,
+      (const int*)col, S, (i32*)flip, (i32*)sig, u);
+  return (int)cudaGetLastError();
+}
+
+int panel_apply_blockfp_launch(void* P, long long sb, long long ld, int B,
+                               int w, const void* piv, const void* tgt, int S,
+                               const void* flip, const void* sig, int threads,
+                               int iters, int hub, int comp, void* stream) {
+  const Params u = {iters, hub, comp};
+  const dim3 grid(B, (w + threads - 1) / threads);
+  panel_apply_blockfp_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      (i32*)P, sb, ld, w, (const int*)piv, (const int*)tgt, S,
+      (const i32*)flip, (const i32*)sig, u);
+  return (int)cudaGetLastError();
+}
+
+const char* blockfp_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

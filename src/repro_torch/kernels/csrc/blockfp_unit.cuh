@@ -1,0 +1,175 @@
+// The int32 block-FP CORDIC Givens step as device functions: one function
+// per function of repro_torch/kernels/cordic_givens.py (the plain version),
+// and the step loop of the block-FP QR kernels (blockfp.cu).
+//
+// Hazards of C++ that XLA's int32 does not have, and what is done here:
+//  * Signed overflow is undefined behaviour in C++, while XLA's int32 adds,
+//    subtracts and multiplies wrap.  Every add, subtract and product is
+//    done in uint32_t and cast back (wrap_add / wrap_sub / wrap_mul); the
+//    cast of an out-of-range uint32_t to int32_t is modular in nvcc.
+//  * In gain_mul_q30 each 15 x 15-bit partial product is wrapped to int32
+//    *before* its arithmetic >> 15 / >> 30, as XLA computes it; a widened
+//    int64 product shifted would give other bits once a product leaves
+//    int32.
+//  * A right shift of a negative int32 is arithmetic in nvcc (shr.s32), as
+//    in XLA and PyTorch; every shift count is a constant or 0 <= i <= 29
+//    (the wrappers refuse iters > 30), so no count reaches 32.
+//  * The HUB carry-in form x + ~ys + (1 - cy) is summed in the plain
+//    version's order (wrapping adds are associative, so any order gives the
+//    same bits).
+#pragma once
+
+#include <cstdint>
+
+namespace bfp {
+
+using i32 = int32_t;
+using u32 = uint32_t;
+
+// The datapath's scalars: CORDIC depth, HUB or conventional arithmetic, and
+// the Q30 gain compensation constant comp_q30(iters).
+struct Params {
+  int iters;
+  int hub;
+  i32 comp;
+};
+
+__device__ __forceinline__ i32 wrap_add(i32 a, i32 b) {
+  return (i32)((u32)a + (u32)b);
+}
+__device__ __forceinline__ i32 wrap_sub(i32 a, i32 b) {
+  return (i32)((u32)a - (u32)b);
+}
+__device__ __forceinline__ i32 wrap_mul(i32 a, i32 b) {
+  return (i32)((u32)a * (u32)b);
+}
+
+// _negate: inversion for HUB, two's complement negation otherwise.
+__device__ __forceinline__ i32 negate(i32 v, int hub) {
+  return hub ? ~v : wrap_sub(0, v);
+}
+
+// _gain_mul_q30: (v * comp) >> 30 in four 15 x 15-bit partial products.
+__device__ __forceinline__ i32 gain_mul_q30(i32 v, i32 comp) {
+  const i32 c_hi = comp >> 15, c_lo = comp & 0x7FFF;
+  const i32 v_hi = v >> 15, v_lo = v & 0x7FFF;  // arithmetic: keeps the sign
+  i32 acc = wrap_mul(v_hi, c_hi);
+  acc = wrap_add(acc, wrap_mul(v_hi, c_lo) >> 15);
+  acc = wrap_add(acc, wrap_mul(v_lo, c_hi) >> 15);
+  return wrap_add(acc, wrap_mul(v_lo, c_lo) >> 30);
+}
+
+// _microrotation: x' = x - d (y >> i), y' = y + d (x >> i), d = +1 where
+// d_pos; with HUB the subtraction adds the inverted operand and the
+// carry-in 1 - c, the addition the carry-in c (paper Fig. 6).
+__device__ __forceinline__ void microrotation(i32& x, i32& y, int i, bool d_pos,
+                                              int hub) {
+  const i32 ys = y >> i, xs = x >> i;
+  i32 xn, yn;
+  if (hub) {
+    const i32 cy = i == 0 ? 1 : (y >> (i - 1)) & 1;
+    const i32 cx = i == 0 ? 1 : (x >> (i - 1)) & 1;
+    xn = d_pos ? wrap_add(wrap_add(x, ~ys), 1 - cy)
+               : wrap_add(wrap_add(x, ys), cy);
+    yn = d_pos ? wrap_add(wrap_add(y, xs), cx)
+               : wrap_add(wrap_add(y, ~xs), 1 - cx);
+  } else {
+    xn = d_pos ? wrap_sub(x, ys) : wrap_add(x, ys);
+    yn = d_pos ? wrap_add(y, xs) : wrap_sub(y, xs);
+  }
+  x = xn;
+  y = yn;
+}
+
+// The lead pair's vectoring: flip on x < 0, then iters micro-rotations
+// driving y to 0, their directions packed into sig (bit i = d_pos of
+// micro-rotation i).
+__device__ __forceinline__ void vector_lead(i32 xl, i32 yl, const Params& u,
+                                            i32& flip, i32& sig) {
+  flip = xl < 0;
+  if (flip) {
+    xl = negate(xl, u.hub);
+    yl = negate(yl, u.hub);
+  }
+  sig = 0;
+  for (int i = 0; i < u.iters; ++i) {
+    const bool d_pos = yl < 0;
+    microrotation(xl, yl, i, d_pos, u.hub);
+    sig |= (i32)d_pos << i;
+  }
+}
+
+// fused_replay on one element pair: the control word (flip, sig) replayed,
+// then the gain compensated.  On the lead pair it gives vectoring's own
+// result bit for bit (the same micro-rotations in the same directions).
+__device__ __forceinline__ void replay(i32& x, i32& y, const Params& u,
+                                       i32 flip, i32 sig) {
+  if (flip) {
+    x = negate(x, u.hub);
+    y = negate(y, u.hub);
+  }
+  for (int i = 0; i < u.iters; ++i) {
+    microrotation(x, y, i, (sig >> i) & 1, u.hub);
+  }
+  x = gain_mul_q30(x, u.comp);
+  y = gain_mul_q30(y, u.comp);
+}
+
+// Copies a rows x e tile between two buffers with row strides ldd and lds;
+// the threads of a row (blockDim.x) stride over the elements.
+__device__ __forceinline__ void copy_tile(i32* dst, long long ldd,
+                                          const i32* src, long long lds,
+                                          int rows, int e) {
+  for (int idx = threadIdx.x; idx < rows * e; idx += blockDim.x) {
+    const int r = idx / e, c = idx - r * e;
+    dst[r * ldd + c] = src[r * lds + c];
+  }
+}
+
+// Runs the S steps (piv[s*ts], tgt[s*ts], col[s*ts]) on the tile T, whose
+// rows hold e elements at stride ld: fused_rotate_block on rows piv and
+// tgt from column col, then the target lead forced to 0.  Every thread of
+// a row runs the lead's vectoring itself and replays the control word on
+// its own elements in place; two barriers a step, so every thread of the
+// block calls this, `live` or not.  With flip_out, thread 0 also writes
+// each step's control word (flip_out[s], sig_out[s]).  Lanes left of col
+// are never touched, which is the panel factorization's restore of the
+// left lanes.
+__device__ __forceinline__ void factor_tile(i32* T, long long ld, int e,
+                                            const int* __restrict__ piv,
+                                            const int* __restrict__ tgt,
+                                            const int* __restrict__ col,
+                                            int ts, int S, bool live,
+                                            const Params& u, i32* flip_out,
+                                            i32* sig_out) {
+  for (int s = 0; s < S; ++s) {
+    const int k = __ldg(piv + s * ts);
+    const int j = __ldg(tgt + s * ts);
+    const int c = __ldg(col + s * ts);
+    i32* rx = T + k * ld;
+    i32* ry = T + j * ld;
+    i32 xl = 0, yl = 0;
+    if (live) {
+      xl = rx[c];
+      yl = ry[c];
+    }
+    __syncthreads();  // the lead pair is read before its owner overwrites it
+    if (live) {
+      i32 flip, sig;
+      vector_lead(xl, yl, u, flip, sig);
+      if (flip_out != nullptr && threadIdx.x == 0) {
+        flip_out[s] = flip;
+        sig_out[s] = sig;
+      }
+      for (int idx = c + threadIdx.x; idx < e; idx += blockDim.x) {
+        i32 x = rx[idx], y = ry[idx];
+        replay(x, y, u, flip, sig);
+        rx[idx] = x;
+        ry[idx] = idx == c ? 0 : y;  // structural zero (systolic array)
+      }
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace bfp

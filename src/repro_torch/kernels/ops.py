@@ -1,13 +1,24 @@
-"""Public wrappers over the CUDA kernels (torch port of the main-path part
-of `repro.kernels.ops`).
+"""Public wrappers over the CUDA kernels (torch port of the ported part of
+`repro.kernels.ops`).
 
 The kernels take one flat batch axis; these wrappers accept any leading
 batch shape and restore it.  Ragged batches need no padding here: the
-kernels mask the ragged edge of their last block.  The dual-int32
-``lanes`` route of the JAX package is ROADMAP B8 and not ported yet.
+kernels mask the ragged edge of their last block.  Two datapaths:
+
+* packed FP words (int64), bit-exact to the unit: `qr_packed`,
+  `qr_packed_panel`;
+* int32 block-FP significands, quantized once per (matrix, column) by
+  `_blockfp_encode` and decoded once by `_blockfp_decode`:
+  `givens_block_apply` (any schedule, e.g. `rls_block_steps`) and
+  `givens_block_apply_panel`.
+
+The dual-int32 ``lanes`` route of the JAX package is ROADMAP B8 and the
+wavefront wrappers are A8; neither is ported yet.
 """
 from __future__ import annotations
 
+import math
+from fractions import Fraction
 from functools import lru_cache
 
 import numpy as np
@@ -17,7 +28,26 @@ from repro_torch.core.qrd import SCHEDULE_CACHE_SIZE
 
 from . import qrd_blocked as qb
 
-__all__ = ["qr_packed", "panel_steps", "qr_packed_panel"]
+__all__ = ["qr_packed", "panel_steps", "qr_packed_panel",
+           "givens_block_apply", "givens_block_apply_panel",
+           "rls_block_steps"]
+
+
+@lru_cache(maxsize=SCHEDULE_CACHE_SIZE)
+def rls_block_steps(n: int, block: int):
+    """Annihilation schedule for a QRD-RLS block update (memoized).
+
+    For a working tile ``[sqrt(lam)-weighted R | z]`` of ``n`` state rows
+    with ``block`` snapshot rows stacked underneath (rows
+    ``n .. n+block-1``), column ``k`` of every snapshot row is annihilated
+    against the diagonal pivot row ``k``: the blocked replay of the
+    per-snapshot QRD-RLS recursion (`repro_torch.qrd.rls.RLSState.flush`
+    feeds it to `givens_block_apply`).
+
+    Returns a tuple of ``(pivot_row, target_row, col)`` triples.
+    """
+    return tuple((k, n + j, k) for k in range(n) for j in range(block))
+
 
 def qr_packed(P, *, cfg, steps, tile_b=None):
     """Kernel-resident blocked QR over packed FP words (bit-exact path).
@@ -108,3 +138,160 @@ def qr_packed_panel(P, *, cfg, n_cols, panel_n=8, tile_b=None):
             qb.panel_apply_packed_call(W[:, c0:, c0 + nc:], piv, tgt, flip,
                                        sig, cfg=cfg)
     return W.reshape(batch + (m, e))
+
+
+#: Integer exponents covered by `_scale_table`: every ``frac - ex`` and
+#: ``ex - frac`` a float64 column and ``frac`` <= 50 can give.
+_SCALE_K = 1100
+
+
+def _fma(a: float, b: float, c: float) -> float:
+    """``a * b + c`` rounded once to float64 (exact rational arithmetic)."""
+    return float(Fraction(a) * Fraction(b) + Fraction(c))
+
+
+def _xla_exp(x: float) -> float:
+    """float64 ``exp`` as XLA computes it on the CPU: Cephes' rational
+    approximation (Eigen's ``pexp_double``) with every multiply-add fused.
+    Evaluated on the host, once per table entry."""
+    x = min(max(x, -709.784), 709.784)
+    fx = math.floor(_fma(1.4426950408889634073599, x, 0.5))
+    x = _fma(-fx, 0.693145751953125, x)
+    x = _fma(-fx, 1.42860682030941723212e-6, x)
+    x2 = x * x
+    px = _fma(_fma(1.26177193074810590878e-4, x2, 3.02994407707441961300e-2),
+              x2, 9.99999999999999999910e-1) * x
+    qx = _fma(_fma(_fma(3.00198505138664455042e-6, x2,
+                        2.52448340349684104192e-3),
+                   x2, 2.27265548208155028766e-1),
+              x2, 2.00000000000000000009e0)
+    x = _fma(2.0, px / (qx - px), 1.0)
+    try:
+        return math.ldexp(x, fx)
+    except OverflowError:
+        return math.inf
+
+
+@lru_cache(maxsize=1)
+def _scale_table() -> np.ndarray:
+    """The block-FP scales ``exp2(k)`` of the JAX package for integer
+    ``k`` in [-_SCALE_K, _SCALE_K], as float64.
+
+    The JAX package scales by ``jnp.exp2``, which XLA lowers to
+    ``exp(x * ln 2)`` (ln 2 rounded to float64, the product rounded, then
+    XLA's own ``exp``): not exact powers of two (off by up to about 1e-13
+    relative), and 0 below 2^-1022.  The port uses the same constants, so
+    its significands and its decoded floats equal the JAX package's bit for
+    bit; a test holds this table to ``jnp.exp2`` over its whole range.
+    """
+    ln2 = 0.69314718055994529
+    return np.array([0.0 if k < -1022 else _xla_exp(ln2 * k)
+                     for k in range(-_SCALE_K, _SCALE_K + 1)])
+
+
+@lru_cache(maxsize=None)
+def _scale_on(device: str):
+    return torch.as_tensor(_scale_table(), device=device)
+
+
+def _scale(k):
+    """The JAX package's ``exp2(k)`` for an integer tensor ``k``, looked up
+    in `_scale_table` on ``k``'s device."""
+    idx = torch.clamp(k.to(torch.int64), -_SCALE_K, _SCALE_K) + _SCALE_K
+    return _scale_on(str(k.device))[idx]
+
+
+def _blockfp_encode(Wf, frac):
+    """float64 (B, m, e) -> int32 significands + per-(matrix, column)
+    exponent.
+
+    One shared exponent ``ex`` per (matrix, column), with the column's
+    amax in [2^(ex-1), 2^ex) (``torch.frexp``, mantissa in [0.5, 1)); an
+    all-zero column gets ``ex = 0``.  Significands are ``round(W *
+    scale(frac - ex))``, half to even, so ``|X| <= 2^frac``.  Valid under
+    any Givens schedule: rotations only combine same-column elements of two
+    rows, so the per-column scales are invariant.  The scales are the JAX
+    package's (`_scale_table`).
+    """
+    amax = Wf.abs().amax(dim=-2, keepdim=True)
+    _, ex = torch.frexp(torch.where(amax > 0, amax, 1.0))
+    ex = torch.where(amax > 0, ex, 0)
+    X = torch.round(Wf * _scale(frac - ex))
+    return X.to(torch.int32), ex
+
+
+def _blockfp_decode(X, ex, frac):
+    """int32 significands and their column exponents -> float64."""
+    return X.to(torch.float64) * _scale(ex - frac)
+
+
+def givens_block_apply(W, steps, *, iters=24, hub=True, frac=24,
+                       tile_b=None):
+    """Apply a Givens schedule to float matrices on the int32 block-FP
+    kernel.
+
+    ``W`` is quantized **once** to int32 significands with one shared
+    exponent per (matrix, column), every step of ``steps`` runs in int32
+    inside one launch of `qrd_blocked.qr_blockfp_call`, and one decode
+    recovers floats.
+
+    Parameters
+    ----------
+    W : (..., m, e) float tensor
+        Working matrices (``[A | I]`` for a QRD, or ``[R | z]`` over new
+        rows for an RLS block update); any leading batch shape.
+    steps : tuple[(int, int, int), ...] — ``(pivot_row, target_row, col)``.
+    iters, hub : CORDIC depth (at most 30) and HUB arithmetic flag.
+    frac : int
+        Fraction bits F of the significands.  F = 24 leaves 2 CORDIC growth
+        bits and log2(sqrt(m)) bits of column-norm growth inside int32 up
+        to m = 128 (29.5 bits).
+    tile_b : int, optional — matrices per CUDA block.
+
+    Returns
+    -------
+    (..., m, e) float64 — the rotated working matrices.
+    """
+    W = torch.as_tensor(W, dtype=torch.float64)
+    batch = W.shape[:-2]
+    m, e = W.shape[-2:]
+    X, ex = _blockfp_encode(W.reshape((-1, m, e)), frac)
+    out = qb.qr_blockfp_call(X.contiguous(), iters=iters, hub=hub,
+                             steps=steps, tile_b=tile_b)
+    return _blockfp_decode(out, ex, frac).reshape(batch + (m, e))
+
+
+def givens_block_apply_panel(W, *, n_cols, iters=24, hub=True, frac=24,
+                             panel_n=8, tile_b=None):
+    """Tiled panel QR on the int32 block-FP datapath.
+
+    `givens_block_apply` on the column-major schedule at production
+    shapes: quantize once (the per-(matrix, column) exponents are invariant
+    under the whole rotation set, so the panel/trailing split needs no
+    re-quantization), sweep the panels with
+    `qrd_blocked.panel_factor_blockfp_call` and
+    `qrd_blocked.panel_apply_blockfp_call` in place on strided views of
+    one working buffer (the loop of `qr_packed_panel`), decode once.
+    Bit-identical to `givens_block_apply` on `givens_schedule(m, n_cols)`.
+
+    Parameters as `givens_block_apply` plus ``n_cols`` (leading columns to
+    annihilate) and ``panel_n`` (panel width).
+
+    Returns
+    -------
+    (..., m, e) float64 — the triangularized working matrices.
+    """
+    W = torch.as_tensor(W, dtype=torch.float64)
+    batch = W.shape[:-2]
+    m, e = W.shape[-2:]
+    X, ex = _blockfp_encode(W.reshape((-1, m, e)), frac)
+    for c0 in range(0, min(n_cols, m - 1), panel_n):
+        nc = min(panel_n, n_cols - c0)
+        piv, tgt, col = panel_steps(m - c0, nc)
+        _, flip, sig = qb.panel_factor_blockfp_call(
+            X[:, c0:, c0:c0 + nc], piv, tgt, col, iters=iters, hub=hub,
+            tile_b=tile_b)
+        if c0 + nc < e:
+            qb.panel_apply_blockfp_call(X[:, c0:, c0 + nc:], piv, tgt, flip,
+                                        sig, iters=iters, hub=hub)
+    return _blockfp_decode(X, ex, frac).reshape(batch + (m, e))

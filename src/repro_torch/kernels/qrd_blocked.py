@@ -14,6 +14,14 @@ wrappers, launch counters and plain PyTorch versions.
   the trailing columns.  Bit-identical to `panel_factor_packed_reference`
   and `panel_apply_packed_reference`, loops of `GivensUnit.vector` and
   `GivensUnit.rotate`.
+* `qr_blockfp_call`, `panel_factor_blockfp_call` and
+  `panel_apply_blockfp_call` (``csrc/blockfp.cu``) replace their namesakes
+  of the JAX package on the int32 block-FP datapath: the same three jobs on
+  int32 significands with one shared exponent per (matrix, column),
+  bit-identical to `qr_blockfp_reference`,
+  `panel_factor_blockfp_reference` and `panel_apply_blockfp_reference`,
+  loops of `repro_torch.kernels.cordic_givens.fused_rotate_block`,
+  `fused_rotate_ctrl` and `fused_replay`.
 
 Each wrapper dispatches on the operand's device: a CUDA tensor launches the
 kernel (or raises), a CPU tensor runs the plain version.
@@ -30,19 +38,25 @@ from repro_torch.core.givens import GivensConfig, GivensUnit
 from repro_torch.core.qrd import SCHEDULE_CACHE_SIZE
 
 from . import _build
+from . import cordic_givens as cg
 
 __all__ = ["qr_packed_call", "qr_packed_reference", "QR_PACKED_LAUNCHES",
            "panel_factor_packed_call", "panel_factor_packed_reference",
            "PANEL_FACTOR_LAUNCHES", "panel_apply_packed_call",
            "panel_apply_packed_reference", "PANEL_APPLY_LAUNCHES",
+           "qr_blockfp_call", "qr_blockfp_reference", "QR_BLOCKFP_LAUNCHES",
+           "panel_factor_blockfp_call", "panel_factor_blockfp_reference",
+           "PANEL_FACTOR_BLOCKFP_LAUNCHES", "panel_apply_blockfp_call",
+           "panel_apply_blockfp_reference", "PANEL_APPLY_BLOCKFP_LAUNCHES",
            "TILE_B", "MAX_SHARED_BYTES", "kernel_params"]
 
 #: Matrices per CUDA block when the caller gives no ``tile_b``.
 TILE_B = 1
 
 #: Dynamic shared memory one block may use on Hopper (227 KB).  The flat
-#: kernel factorizes a block's tiles beyond it in place in device memory;
-#: the panel factorization keeps its panels within it.
+#: packed kernel factorizes a block's tiles beyond it in place in device
+#: memory; the panel factorizations and the flat block-FP kernel keep their
+#: tiles within it.
 MAX_SHARED_BYTES = 232448
 
 #: Launches of each CUDA kernel in this process (comparisons included);
@@ -50,6 +64,9 @@ MAX_SHARED_BYTES = 232448
 QR_PACKED_LAUNCHES = 0
 PANEL_FACTOR_LAUNCHES = 0
 PANEL_APPLY_LAUNCHES = 0
+QR_BLOCKFP_LAUNCHES = 0
+PANEL_FACTOR_BLOCKFP_LAUNCHES = 0
+PANEL_APPLY_BLOCKFP_LAUNCHES = 0
 
 
 def qr_packed_reference(P, *, cfg: GivensConfig, steps):
@@ -142,22 +159,34 @@ def _unit_args(cfg: GivensConfig):
     return tuple(kernel_params(cfg).values())
 
 
+#: The launch functions of each source: their C argument types, before the
+#: trailing unit arguments.
+_SIGNATURES = {
+    "qr_packed_launch": [_C_PTR] * 3 + [_C_INT] * 7 + _UNIT_ARGTYPES,
+    "panel_factor_launch": ([_C_PTR, _C_LL, _C_LL] + [_C_INT] * 3
+                            + [_C_PTR] * 3 + [_C_INT] + [_C_PTR] * 2
+                            + [_C_INT] * 2 + _UNIT_ARGTYPES),
+    "panel_apply_launch": ([_C_PTR, _C_LL, _C_LL] + [_C_INT] * 2
+                           + [_C_PTR] * 2 + [_C_INT] + [_C_PTR] * 2
+                           + [_C_INT] + _UNIT_ARGTYPES),
+    # block-FP launches end in (iters, hub, comp, stream)
+    "qr_blockfp_launch": [_C_PTR] * 3 + [_C_INT] * 9 + [_C_PTR],
+    "panel_factor_blockfp_launch": ([_C_PTR, _C_LL, _C_LL] + [_C_INT] * 3
+                                    + [_C_PTR] * 3 + [_C_INT] + [_C_PTR] * 2
+                                    + [_C_INT] * 5 + [_C_PTR]),
+    "panel_apply_blockfp_launch": ([_C_PTR, _C_LL, _C_LL] + [_C_INT] * 2
+                                   + [_C_PTR] * 2 + [_C_INT] + [_C_PTR] * 2
+                                   + [_C_INT] * 4 + [_C_PTR]),
+}
+
+
 @lru_cache(maxsize=None)
 def _lib(name: str):
     """The ctypes handle of ``csrc/<name>.cu`` with its launch signatures."""
     lib = _build.load(name)
-    signatures = {
-        "qr_packed_launch": [_C_PTR] * 3 + [_C_INT] * 7,
-        "panel_factor_launch": ([_C_PTR, _C_LL, _C_LL] + [_C_INT] * 3
-                                + [_C_PTR] * 3 + [_C_INT] + [_C_PTR] * 2
-                                + [_C_INT] * 2),
-        "panel_apply_launch": ([_C_PTR, _C_LL, _C_LL] + [_C_INT] * 2
-                               + [_C_PTR] * 2 + [_C_INT] + [_C_PTR] * 2
-                               + [_C_INT]),
-    }
-    for fn, head in signatures.items():
+    for fn, argtypes in _SIGNATURES.items():
         if hasattr(lib, fn):
-            getattr(lib, fn).argtypes = head + _UNIT_ARGTYPES
+            getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = _C_INT
     err_string = getattr(lib, f"{name}_error_string")
     err_string.argtypes = [_C_INT]
@@ -176,15 +205,16 @@ def _check_launch(name: str, err: int):
                            f"({msg})")
 
 
-def _check_operand(fn: str, P, ndim: int = 3):
+def _check_operand(fn: str, P, ndim: int = 3, dtype=torch.int64):
     """True for a CPU tensor (run the plain version); raises on anything
-    but an int64 CUDA tensor of ``ndim`` dims with unit column stride."""
+    but a CUDA tensor of ``dtype`` and ``ndim`` dims with unit column
+    stride."""
     if P.device.type == "cpu":
         return True
     if P.device.type != "cuda":
         raise ValueError(f"{fn} runs on CUDA or CPU tensors, got {P.device}")
-    if P.dtype != torch.int64 or P.dim() != ndim or P.stride(-1) != 1:
-        raise ValueError(f"{fn}: expected a {ndim}-d int64 tensor with unit "
+    if P.dtype != dtype or P.dim() != ndim or P.stride(-1) != 1:
+        raise ValueError(f"{fn}: expected a {ndim}-d {dtype} tensor with unit "
                          f"column stride, got {P.dtype} {tuple(P.shape)} "
                          f"strides {P.stride()}")
     return False
@@ -195,6 +225,25 @@ def _threads_x(e: int) -> int:
     kernel and the panel factorization): one per element up to a warp,
     then whole warps, at most 256."""
     return e if e <= 32 else min(-(-e // 32) * 32, 256)
+
+
+def _shared_tile_b(tile_b, fn: str, threads_x: int, tile_bytes: int,
+                   default: int) -> int:
+    """Tiles per block of a kernel that keeps them in shared memory:
+    ``default`` capped to `MAX_SHARED_BYTES` when the caller gives none; a
+    block of more than 1024 threads, or an explicit ``tile_b`` whose tiles
+    do not fit, raises ValueError."""
+    if tile_b is None:
+        tile_b = max(1, min(default, MAX_SHARED_BYTES // tile_bytes))
+    tile_b = int(tile_b)
+    if tile_b < 1 or threads_x * tile_b > 1024:
+        raise ValueError(f"{fn}: tile_b={tile_b} gives a block of "
+                         f"{threads_x} x {tile_b} threads (at most 1024)")
+    if tile_b * tile_bytes > MAX_SHARED_BYTES:
+        raise ValueError(f"{fn}: tile_b={tile_b} tiles of {tile_bytes} B need "
+                         f"{tile_b * tile_bytes} B of shared memory (at most "
+                         f"{MAX_SHARED_BYTES})")
+    return tile_b
 
 
 @lru_cache(maxsize=SCHEDULE_CACHE_SIZE)
@@ -319,17 +368,8 @@ def panel_factor_packed_call(P, piv, tgt, col, *, cfg: GivensConfig,
                            _host_table(col), mr, pw, str(P.device))
     S = tables[0].shape[0]
     threads_x = _threads_x(pw)
-    panel_bytes = mr * pw * 8
-    if tile_b is None:
-        tile_b = max(1, min(32 // threads_x, MAX_SHARED_BYTES // panel_bytes))
-    tile_b = int(tile_b)
-    if tile_b < 1 or threads_x * tile_b > 1024:
-        raise ValueError(f"tile_b={tile_b} gives a block of {threads_x} x "
-                         f"{tile_b} threads (at most 1024)")
-    if tile_b * panel_bytes > MAX_SHARED_BYTES:
-        raise ValueError(f"tile_b={tile_b} panels of {mr} x {pw} words need "
-                         f"{tile_b * panel_bytes} B of shared memory (at most "
-                         f"{MAX_SHARED_BYTES}); use narrower panels")
+    tile_b = _shared_tile_b(tile_b, "panel_factor_packed_call", threads_x,
+                            mr * pw * 8, max(1, 32 // threads_x))
     flip = torch.empty((B, S), dtype=torch.int64, device=P.device)
     sig = torch.empty_like(flip)
     if B == 0 or S == 0:
@@ -384,4 +424,216 @@ def panel_apply_packed_call(T, piv, tgt, flip, sig, *, cfg: GivensConfig):
         *_unit_args(cfg), _stream(T))
     _check_launch("panel_packed", err)
     PANEL_APPLY_LAUNCHES += 1
+    return T
+
+
+# ---------------------------------------------------------------------------
+# int32 block-FP datapath (csrc/blockfp.cu)
+# ---------------------------------------------------------------------------
+def qr_blockfp_reference(X, *, iters: int, hub: bool, steps):
+    """Plain PyTorch version of the flat block-FP kernel, on any device.
+
+    X : (B, m, e) integer significands (int32; int64 runs the same
+    arithmetic without wrapping).  Returns new (B, m, e) significands: for
+    each ``(k, j, col)`` step, rows k and j from ``col`` go through
+    `cordic_givens.fused_rotate_block` and the target lead is forced to 0.
+    """
+    comp = cg.comp_q30(iters)
+    X = X.clone()
+    for (k, j, col) in steps:
+        rx, ry = cg.fused_rotate_block(X[:, k, col:], X[:, j, col:],
+                                       iters=iters, hub=hub, comp=comp)
+        ry[:, 0] = 0                     # structural zero (systolic array)
+        X[:, k, col:] = rx
+        X[:, j, col:] = ry
+    return X
+
+
+def panel_factor_blockfp_reference(X, piv, tgt, col, *, iters: int,
+                                   hub: bool):
+    """Plain PyTorch version of the block-FP panel factorization.
+
+    X : (B, mr, pw) integer significands; piv, tgt, col : (S,) panel-local
+    step tables.  Returns new ``(out, flip, sig)``: for each step the rows
+    go through `cordic_givens.fused_rotate_ctrl` at the panel's width with
+    the lead selected by a one-hot, the lanes left of the lead are
+    restored and the target lead is forced to 0; ``flip`` and ``sig`` are
+    the (B, S) control words in X's type.
+    """
+    comp = cg.comp_q30(iters)
+    X = X.clone()
+    colid = torch.arange(X.shape[-1], device=X.device)[None]
+    flips, sigs = [], []
+    for k, j, c in zip(*(_host_table(t) for t in (piv, tgt, col))):
+        x, y = X[:, k], X[:, j]
+        lead = colid == c
+        active = colid >= c
+        rx, ry, flip, sig = cg.fused_rotate_ctrl(x, y, lead, iters=iters,
+                                                 hub=hub, comp=comp)
+        rx = torch.where(active, rx, x)  # untouched left lanes
+        ry = torch.where(active, ry, y)
+        ry = torch.where(lead, 0, ry)    # structural zero
+        X[:, k] = rx
+        X[:, j] = ry
+        flips.append(flip)
+        sigs.append(sig)
+    empty = X.new_zeros((X.shape[0], 0))
+    return (X, torch.stack(flips, 1) if flips else empty,
+            torch.stack(sigs, 1) if sigs else empty)
+
+
+def panel_apply_blockfp_reference(T, piv, tgt, flip, sig, *, iters: int,
+                                  hub: bool):
+    """Plain PyTorch version of the block-FP trailing-column replay.
+
+    T : (B, mr, w) integer significands; piv, tgt : (S,) panel-local row
+    tables; flip, sig : (B, S) control words.  Returns new (B, mr, w)
+    significands: each step's control word replayed with
+    `cordic_givens.fused_replay` on whole rows piv and tgt.
+    """
+    comp = cg.comp_q30(iters)
+    T = T.clone()
+    for s, (k, j) in enumerate(zip(_host_table(piv), _host_table(tgt))):
+        rx, ry = cg.fused_replay(T[:, k], T[:, j], flip[:, s], sig[:, s],
+                                 iters=iters, hub=hub, comp=comp)
+        T[:, k] = rx
+        T[:, j] = ry
+    return T
+
+
+def _blockfp_args(iters: int, hub: bool):
+    """(iters, hub, comp) as the block-FP kernels take them."""
+    cg._check_iters(iters)
+    return int(iters), int(bool(hub)), cg.comp_q30(iters)
+
+
+def qr_blockfp_call(X, *, iters: int, hub: bool, steps,
+                    tile_b: int | None = None):
+    """Blocked QR over int32 block-FP significands: one CUDA launch.
+
+    Parameters
+    ----------
+    X : (B, m, e) int32, contiguous
+        Significands with F fraction bits and one shared exponent per
+        (matrix, column) (`repro_torch.kernels.ops.givens_block_apply`
+        quantizes them).  On a CPU tensor the plain version runs instead.
+    iters, hub : CORDIC depth (at most 30) and HUB or conventional
+        arithmetic.
+    steps : tuple[(int, int, int), ...]
+        Rotation schedule ``(pivot_row, target_row, col)``, read by the
+        kernel at run time (column-major, `ops.rls_block_steps`, ...).
+    tile_b : int, optional
+        Matrices per CUDA block (default `TILE_B`, capped to shared
+        memory); an explicit one whose tiles exceed `MAX_SHARED_BYTES`
+        raises ValueError.  The last block masks the ragged edge.
+
+    Returns
+    -------
+    (B, m, e) int32 — the triangularized significands (same scales).
+    """
+    global QR_BLOCKFP_LAUNCHES
+    steps = tuple(tuple(int(v) for v in s) for s in steps)
+    args = _blockfp_args(iters, hub)
+    if _check_operand("qr_blockfp_call", X, dtype=torch.int32):
+        return qr_blockfp_reference(X, iters=iters, hub=hub, steps=steps)
+    if not X.is_contiguous():
+        raise ValueError("qr_blockfp_call: expected a contiguous tensor")
+    B, m, e = X.shape
+    threads_x = _threads_x(e)
+    tile_b = _shared_tile_b(tile_b, "qr_blockfp_call", threads_x, m * e * 4,
+                            TILE_B)
+    out = torch.empty_like(X)
+    if B == 0:
+        return out
+    table = _step_table(steps, m, e, str(X.device))
+    err = _lib("blockfp").qr_blockfp_launch(
+        X.data_ptr(), out.data_ptr(), table.data_ptr(), B, m, e, len(steps),
+        tile_b, threads_x, *args, _stream(X))
+    _check_launch("blockfp", err)
+    QR_BLOCKFP_LAUNCHES += 1
+    return out
+
+
+def panel_factor_blockfp_call(X, piv, tgt, col, *, iters: int, hub: bool,
+                              tile_b: int | None = None):
+    """Panel factorization over int32 block-FP significands, exporting
+    control words; one CUDA launch, **in place** on ``X``.
+
+    Parameters as `panel_factor_packed_call` with ``X : (B, mr, pw) int32``
+    (a view with any batch and row strides, unit column stride) and the
+    datapath's ``iters``/``hub``.  The per-column shared exponents are
+    invariant under the whole rotation set, so the panel/trailing split
+    needs no re-quantization.
+
+    Returns
+    -------
+    (X, flip, sig) — ``X`` factored in place; ``flip``/``sig`` (B, S) int32
+    control words for `panel_apply_blockfp_call`.
+    """
+    global PANEL_FACTOR_BLOCKFP_LAUNCHES
+    args = _blockfp_args(iters, hub)
+    if _check_operand("panel_factor_blockfp_call", X, dtype=torch.int32):
+        out, flip, sig = panel_factor_blockfp_reference(X, piv, tgt, col,
+                                                        iters=iters, hub=hub)
+        X.copy_(out)
+        return X, flip, sig
+    B, mr, pw = X.shape
+    tables = _panel_tables((_host_table(piv), _host_table(tgt)),
+                           _host_table(col), mr, pw, str(X.device))
+    S = tables[0].shape[0]
+    threads_x = _threads_x(pw)
+    tile_b = _shared_tile_b(tile_b, "panel_factor_blockfp_call", threads_x,
+                            mr * pw * 4, max(1, 32 // threads_x))
+    flip = torch.empty((B, S), dtype=torch.int32, device=X.device)
+    sig = torch.empty_like(flip)
+    if B == 0 or S == 0:
+        return X, flip, sig
+    err = _lib("blockfp").panel_factor_blockfp_launch(
+        X.data_ptr(), X.stride(0), X.stride(1), B, mr, pw,
+        *(t.data_ptr() for t in tables), S, flip.data_ptr(), sig.data_ptr(),
+        tile_b, threads_x, *args, _stream(X))
+    _check_launch("blockfp", err)
+    PANEL_FACTOR_BLOCKFP_LAUNCHES += 1
+    return X, flip, sig
+
+
+def panel_apply_blockfp_call(T, piv, tgt, flip, sig, *, iters: int,
+                             hub: bool):
+    """Replay a panel's int32 control words over the trailing block-FP
+    columns; one CUDA launch, **in place** on ``T``.
+
+    Parameters as `panel_apply_packed_call` with ``T : (B, mr, w) int32``,
+    ``flip``/``sig`` (B, S) int32 from `panel_factor_blockfp_call` and the
+    datapath's ``iters``/``hub``.  One CUDA thread owns one column for all
+    S steps.
+
+    Returns
+    -------
+    ``T``, updated in place.
+    """
+    global PANEL_APPLY_BLOCKFP_LAUNCHES
+    args = _blockfp_args(iters, hub)
+    if _check_operand("panel_apply_blockfp_call", T, dtype=torch.int32):
+        T.copy_(panel_apply_blockfp_reference(T, piv, tgt, flip, sig,
+                                              iters=iters, hub=hub))
+        return T
+    B, mr, w = T.shape
+    piv_t, tgt_t = _panel_tables((_host_table(piv), _host_table(tgt)), None,
+                                 mr, w, str(T.device))
+    S = piv_t.shape[0]
+    if (flip.shape != (B, S) or sig.shape != (B, S) or flip.device != T.device
+            or sig.device != T.device or not flip.is_contiguous()
+            or not sig.is_contiguous() or flip.dtype != torch.int32
+            or sig.dtype != torch.int32):
+        raise ValueError(f"flip and sig must be contiguous ({B}, {S}) int32 "
+                         f"tensors on {T.device}")
+    if B == 0 or S == 0 or w == 0:
+        return T
+    threads = min(-(-w // 32) * 32, 128)
+    err = _lib("blockfp").panel_apply_blockfp_launch(
+        T.data_ptr(), T.stride(0), T.stride(1), B, w, piv_t.data_ptr(),
+        tgt_t.data_ptr(), S, flip.data_ptr(), sig.data_ptr(), threads, *args,
+        _stream(T))
+    _check_launch("blockfp", err)
+    PANEL_APPLY_BLOCKFP_LAUNCHES += 1
     return T

@@ -1,14 +1,14 @@
 """Built-in backend registrations (torch port of `repro.qrd.backends`).
 
-Two of the JAX package's six built-ins are ported, with the same
+Three of the JAX package's six built-ins are ported, with the same
 capability records:
 
-  'cordic'         the paper's unit, host loop (the kernel's plain version)
-  'cordic_pallas'  the same unit in the CUDA kernel, bit-identical to it
+  'cordic'          the paper's unit, host loop (the kernel's plain version)
+  'cordic_pallas'   the same unit in the CUDA kernel, bit-identical to it
+  'blockfp_pallas'  the int32 block-FP fast path on its CUDA kernel
 
-'jnp', 'givens_float', 'blockfp_pallas' and 'fixed' are ROADMAP items and
-not registered yet: asking for one raises the registry's unknown-backend
-error.  Importing this module (``repro_torch.qrd`` does) populates the
+'jnp', 'givens_float' and 'fixed' are ROADMAP A2 and not registered yet:
+asking for one raises the registry's unknown-backend error.  Importing this module (``repro_torch.qrd`` does) populates the
 registry.
 """
 from __future__ import annotations
@@ -53,6 +53,19 @@ def _build_cordic_pallas(config, m, n, compute_q):
                                          tile_b=config.tile_b)
 
 
+def _build_blockfp_pallas(config, m, n, compute_q):
+    _no_complex(config)
+    if config.schedule == "sameh_kuck":
+        raise NotImplementedError(
+            "schedule='sameh_kuck' routes onto the block-FP wavefront kernel, "
+            "which is not ported yet (ROADMAP A8, kernel B5)")
+    iters, hub, frac = (config.blockfp_iters(), config.blockfp_hub(),
+                        config.frac)
+    return lambda A: _q.qr_blockfp_pallas(A, compute_q=compute_q, iters=iters,
+                                          hub=hub, frac=frac,
+                                          tile_b=config.tile_b)
+
+
 def register_builtin_backends(overwrite=False):
     """Populate the registry with the ported built-in backends (idempotent)."""
     entries = (
@@ -68,6 +81,10 @@ def register_builtin_backends(overwrite=False):
             max_shape=(128, 128), supports_tiling=True,
             description="kernel-resident unit, bit-identical to 'cordic'; "
                         "'sameh_kuck' routes onto the wavefront datapath")),
+        ("blockfp_pallas", _build_blockfp_pallas, BackendCapabilities(
+            bit_exact=False, wavefront=True, sharding=True,
+            max_shape=(128, 128), supports_tiling=True,
+            description="int32 block-FP blocked kernel (fast TPU path)")),
     )
     registered = available_backends()
     for name, builder, caps in entries:

@@ -41,7 +41,7 @@ class QRDConfig:
         ``'col'`` (column-major) or ``'sameh_kuck'`` (parallel pairing).
     givens : GivensConfig
         Unit parameters for the cordic family.
-    iters, hub, frac : block-FP kernel knobs (ROADMAP A5).
+    iters, hub, frac : block-FP kernel knobs (`blockfp_iters`, `blockfp_hub`).
     fixed_width, fixed_iters, fixed_scale_exp : ``'fixed'`` baseline knobs.
     dtype : str, numpy or torch dtype
         Element dtype of the problem, normalized to its name.  The
@@ -133,6 +133,17 @@ class QRDConfig:
     def from_json(cls, s: str) -> "QRDConfig":
         """Inverse of `to_json`: ``QRDConfig.from_json(cfg.to_json()) == cfg``."""
         return cls.from_dict(json.loads(s))
+
+    # -- resolved block-FP parameters ----------------------------------------
+    def blockfp_iters(self) -> int:
+        """CORDIC depth of the block-FP datapath: ``iters``, else the unit's
+        resolved depth."""
+        return self.givens.resolved_iters() if self.iters is None else self.iters
+
+    def blockfp_hub(self) -> bool:
+        """HUB arithmetic of the block-FP datapath: ``hub``, else the
+        unit's."""
+        return self.givens.hub if self.hub is None else self.hub
 
     def cache_key(self):
         """Hashable key covering everything dispatch depends on (``mesh``

@@ -9,8 +9,12 @@
 
 The engine runs on the GPU unless it is given ``device="cpu"``; on the CPU
 every kernel's plain PyTorch version runs instead.  Shapes beyond the flat
-route go to the panel or TSQR route (`repro_torch.qrd.tiled`).  Streaming
-RLS (``rls``/``fleet``, ROADMAP A6/A11), sharding meshes (A12) and
+route go to the panel or TSQR route (`repro_torch.qrd.tiled`).
+
+* **rls** — ``engine.rls(n)``: a streaming QRD-RLS state on the engine's
+  device (`repro_torch.qrd.rls.RLSState`, real dtypes).
+
+The RLS fleet (ROADMAP A11), complex RLS (A9), sharding meshes (A12) and
 autotuned tiles (A10) are not ported yet.
 """
 from __future__ import annotations
@@ -30,7 +34,7 @@ def resolve_device(device=None) -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "QRDEngine runs on the GPU by default and no CUDA device is "
+                "the port runs on the GPU by default and no CUDA device is "
                 "available; pass device='cpu' to run the kernels' plain "
                 "PyTorch versions on the CPU")
         return torch.device("cuda")
@@ -198,10 +202,56 @@ class QRDEngine:
         return (x, resid) if return_residuals else x
 
     # -- streaming RLS --------------------------------------------------------
-    def rls(self, *args, **kwargs):
-        """Streaming QRD-RLS state; not ported yet (ROADMAP A6)."""
-        raise NotImplementedError("streaming QRD-RLS is not ported yet "
-                                  "(ROADMAP A6)")
+    def rls(self, n, lam=0.99, delta=1e-3, block=None):
+        """Create a streaming QRD-RLS state bound to this engine's backend
+        and device.
+
+        Parameters
+        ----------
+        n : int
+            Filter length (columns of the carried R).
+        lam : float
+            Forgetting factor in (0, 1].
+        delta : float
+            Initial diagonal loading of R.
+        block : int, optional
+            Update granularity.  ``None`` selects the backend's natural
+            path: the cordic family updates per snapshot on the
+            bit-accurate unit (`GivensUnit.annihilate`),
+            ``'blockfp_pallas'`` batches ``block=4`` snapshots per launch
+            of the block-FP kernel, and any other backend uses a plain
+            float64 rotation loop.  An explicit ``block`` forces the
+            block-FP path on any backend.
+
+        Returns
+        -------
+        `repro_torch.qrd.rls.RLSState` on the engine's device —
+        ``state.update(x, d)`` / ``state.weights()``.  A complex-dtype
+        config raises: complex QRD-RLS is ROADMAP A9.
+        """
+        from repro_torch.core.givens import GivensUnit
+        from .rls import RLSState, validate_lam
+
+        validate_lam(lam)  # eagerly, before any mode routing can raise
+        cfg = self.config
+        if block is not None or cfg.backend == "blockfp_pallas":
+            if cfg.is_complex():
+                raise TypeError(
+                    "the blocked-kernel RLS path has no complex datapath; "
+                    "use the cordic family (mode='unit') or a float "
+                    "backend for complex QRD-RLS")
+            return RLSState(n, lam=lam, delta=delta, mode="block",
+                            block=4 if block is None else int(block),
+                            hub=cfg.blockfp_hub(), iters=cfg.blockfp_iters(),
+                            frac=cfg.frac, tile_b=cfg.tile_b,
+                            device=self.device)
+        dtype = "complex128" if cfg.is_complex() else "float64"
+        if cfg.backend in ("cordic", "cordic_pallas"):
+            return RLSState(n, lam=lam, delta=delta, mode="unit",
+                            unit=GivensUnit(cfg.givens), dtype=dtype,
+                            device=self.device)
+        return RLSState(n, lam=lam, delta=delta, mode="float", dtype=dtype,
+                        device=self.device)
 
     def fleet(self, *args, **kwargs):
         """QRD-RLS serving fleet; not ported yet (ROADMAP A11)."""

@@ -7,9 +7,10 @@ cap; every rotation is still computed once (vectoring on the lead pair)
 and replayed everywhere else from its ``(flip, sigma)`` control word:
 
 * **panel** — sweep the columns in ``panel_n``-wide panels: the CUDA
-  kernel `panel_factor_packed_call` factorizes a panel and exports the
-  control words of its rotations, `panel_apply_packed_call` replays them
-  over the trailing columns.  The panel step tables concatenate to
+  kernel `panel_factor_packed_call` (``panel_factor_blockfp_call`` on the
+  block-FP lane) factorizes a panel and exports the control words of its
+  rotations, `panel_apply_packed_call` (``panel_apply_blockfp_call``)
+  replays them over the trailing columns.  The panel step tables concatenate to
   `repro_torch.core.qrd.givens_schedule`, so R and Q are bit-identical to
   the flat route.  m is bounded by ``max_shape[0]``; n is not.
 * **tsqr** — rows are zero-padded to ``L * tile_m`` and split into L leaf
@@ -133,19 +134,26 @@ def _leaf_qr_fn(config, panel_n):
     """The batched small-QR primitive both tiled routes are built from:
     ``qr(X, compute_q) -> (Q, R)`` on the panel route of the configured
     backend (full-shape factors, `repro_torch.core.qrd._split_qr`
-    contract)."""
+    contract): packed words for ``cordic_pallas``, int32 block-FP
+    significands otherwise."""
     from repro_torch.core import qrd as _q
     from repro_torch.core.givens import GivensUnit
 
-    if config.backend != "cordic_pallas":
-        raise NotImplementedError(
-            f"the tiled routes of backend {config.backend!r} are not ported "
-            "yet: the block-FP panel route waits on ROADMAP A5/B2/B4")
-    unit = GivensUnit(config.givens)
+    if config.backend == "cordic_pallas":
+        unit = GivensUnit(config.givens)
+
+        def qr(X, cq):
+            return _q.qr_cordic_panel(X, unit, compute_q=cq, panel_n=panel_n,
+                                      tile_b=config.tile_b)
+        return qr
+
+    iters, hub, frac = (config.blockfp_iters(), config.blockfp_hub(),
+                        config.frac)
 
     def qr(X, cq):
-        return _q.qr_cordic_panel(X, unit, compute_q=cq, panel_n=panel_n,
-                                  tile_b=config.tile_b)
+        return _q.qr_blockfp_panel(X, compute_q=cq, iters=iters, hub=hub,
+                                   frac=frac, panel_n=panel_n,
+                                   tile_b=config.tile_b)
     return qr
 
 

@@ -112,13 +112,23 @@ def test_unported_paths_raise():
         sk(np.eye(4))
     with pytest.raises(NotImplementedError, match="B7"):
         eng(np.eye(4) * (1 + 1j))
-    with pytest.raises(NotImplementedError, match="A6"):
-        eng.rls(4)
+    # streaming RLS is ported (ROADMAP A6): the cordic family updates on
+    # the bit-accurate unit, on the engine's device
+    st = eng.rls(4)
+    assert isinstance(st, tapi.RLSState)
+    assert (st.mode, st.device.type) == ("unit", "cpu")
     with pytest.raises(NotImplementedError, match="A11"):
         eng.fleet(2, 4)
     with pytest.raises(NotImplementedError, match="A12"):
         tapi.QRDEngine(backend="cordic", device="cpu", mesh=object())
-    for name in ("jnp", "givens_float", "blockfp_pallas", "fixed"):
+    # the block-FP lane is ported (ROADMAP A5, kernels B2/B4); its
+    # wavefront schedule is not (A8, kernel B5)
+    bfp = tapi.QRDEngine(backend="blockfp_pallas", device="cpu")
+    assert bfp.capabilities.max_shape == (128, 128)
+    with pytest.raises(NotImplementedError, match="B5"):
+        tapi.QRDEngine(backend="blockfp_pallas", schedule="sameh_kuck",
+                       device="cpu")(np.eye(4))
+    for name in ("jnp", "givens_float", "fixed"):
         with pytest.raises(ValueError, match="unknown backend"):
             tapi.QRDEngine(backend=name, device="cpu")
 

@@ -1,5 +1,6 @@
 """The CUDA kernels of `repro_torch` (the flat kernel, the panel factor and
-apply kernels) against their plain PyTorch versions, on the GPU.
+apply kernels of the packed lane, and their three block-FP twins) against
+their plain PyTorch versions, on the GPU.
 
 Marked ``gpu``: the kernels have no CPU or interpret mode, so these tests
 skip on a machine without CUDA (the `cuda` fixture decides, at run time).
@@ -21,6 +22,7 @@ from repro_torch.core.qrd import givens_schedule  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import qrd_blocked as qb  # noqa: E402
 from repro_torch.qrd import QRDEngine  # noqa: E402
+from repro_torch.qrd.rls import RLSState  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -145,3 +147,98 @@ def test_panel_factor_keeps_panels_in_shared_memory(cuda, monkeypatch):
     chip_smoke.check_panel_sweep(P, cfg, 6, 6)         # default tile_b: 2
     with pytest.raises(ValueError, match="shared memory"):
         qb.panel_factor_packed_call(P.clone(), piv, tgt, col, cfg=cfg, tile_b=3)
+
+
+# ---------------------------------------------------------------------------
+# the int32 block-FP lane (csrc/blockfp.cu)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("hub,iters", chip_smoke.BFP_CONFIGS)
+def test_qr_blockfp_bit_equal_to_plain_version(cuda, hub, iters):
+    rng = np.random.default_rng(iters + hub)
+    before = qb.QR_BLOCKFP_LAUNCHES
+    for (m, n, cq) in ((4, 4, True), (6, 3, True), (3, 5, False),
+                       (16, 16, True)):
+        e = n + (m if cq else 0)
+        for edge in (False, True):
+            chip_smoke.check_bfp_flat(
+                chip_smoke.bfp_words(8, m, e, rng, cuda, edge), hub, iters,
+                givens_schedule(m, n))
+    chip_smoke.check_bfp_flat(chip_smoke.bfp_words(4, 12, 9, rng, cuda), hub,
+                              iters, ops.rls_block_steps(8, 4))
+    assert qb.QR_BLOCKFP_LAUNCHES == before + 9
+
+
+@pytest.mark.parametrize("tile_b", [1, 2, 4])
+def test_qr_blockfp_ragged_batch(cuda, tile_b):
+    X = chip_smoke.bfp_words(5, 6, 10, np.random.default_rng(9), cuda)
+    chip_smoke.check_bfp_flat(X, True, 24, givens_schedule(6, 4), tile_b)
+
+
+@pytest.mark.parametrize("hub,iters", chip_smoke.BFP_CONFIGS)
+def test_blockfp_panel_kernels_bit_equal_to_plain_versions(cuda, hub, iters):
+    """B4a and B4b at every launch of the panel route, against their plain
+    versions, and the route against B2."""
+    rng = np.random.default_rng(30 + iters + hub)
+    before = (qb.PANEL_FACTOR_BLOCKFP_LAUNCHES,
+              qb.PANEL_APPLY_BLOCKFP_LAUNCHES)
+    for pw in (3, 8):
+        for edge in (False, True):
+            chip_smoke.check_bfp_panel_sweep(
+                chip_smoke.bfp_words(8, 12, 18, rng, cuda, edge), hub, iters,
+                6, pw)
+    chip_smoke.check_bfp_panel_sweep(chip_smoke.bfp_words(5, 10, 14, rng, cuda),
+                                     hub, iters, 4, 3, tile_b=2)
+    assert qb.PANEL_FACTOR_BLOCKFP_LAUNCHES > before[0]
+    assert qb.PANEL_APPLY_BLOCKFP_LAUNCHES > before[1]
+
+
+def test_blockfp_kernels_keep_tiles_in_shared_memory(cuda, monkeypatch):
+    """B2 and B4a cap their default tile_b to shared memory and raise on an
+    explicit tile_b whose tiles do not fit."""
+    rng = np.random.default_rng(12)
+    X = chip_smoke.bfp_words(5, 12, 18, rng, cuda)
+    monkeypatch.setattr(qb, "MAX_SHARED_BYTES", 2 * 12 * 18 * 4)
+    chip_smoke.check_bfp_flat(X, True, 24, givens_schedule(12, 6), tile_b=2)
+    with pytest.raises(ValueError, match="shared memory"):
+        qb.qr_blockfp_call(X, iters=24, hub=True,
+                           steps=givens_schedule(12, 6), tile_b=3)
+    P = chip_smoke.bfp_words(5, 12, 6, rng, cuda)
+    piv, tgt, col = ops.panel_steps(12, 6)
+    monkeypatch.setattr(qb, "MAX_SHARED_BYTES", 2 * 12 * 6 * 4)
+    chip_smoke.check_bfp_panel_sweep(P, True, 24, 6, 6)    # default tile_b: 2
+    with pytest.raises(ValueError, match="shared memory"):
+        qb.panel_factor_blockfp_call(P.clone(), piv, tgt, col, iters=24,
+                                     hub=True, tile_b=3)
+
+
+@pytest.mark.parametrize("hub", [False, True], ids=["conv", "hub"])
+def test_blockfp_engine_panel_equals_flat_at_128(cuda, hub):
+    """At 128 x 128 with Q the flat kernel B2 holds a 128 x 256 int32 tile
+    (128 KiB) in shared memory; its Q and R equal the panel route's."""
+    A = np.random.default_rng(6).normal(size=(2, 128, 128))
+    kw = dict(backend="blockfp_pallas", dtype="float64", hub=hub, iters=24)
+    before = (qb.QR_BLOCKFP_LAUNCHES, qb.PANEL_FACTOR_BLOCKFP_LAUNCHES)
+    Qf, Rf = QRDEngine(tiling="flat", **kw)(A)
+    Qp, Rp = QRDEngine(**kw)(A)                         # auto -> panel
+    assert qb.QR_BLOCKFP_LAUNCHES == before[0] + 1
+    assert qb.PANEL_FACTOR_BLOCKFP_LAUNCHES == before[1] + 16
+    assert torch.equal(Qf, Qp) and torch.equal(Rf, Rp)
+
+
+def test_blockfp_engine_and_rls_on_gpu_equal_cpu(cuda):
+    A = np.random.default_rng(4).normal(size=(7, 8, 6))
+    kw = dict(backend="blockfp_pallas", dtype="float64", hub=True, iters=24)
+    before = qb.QR_BLOCKFP_LAUNCHES
+    Qg, Rg = QRDEngine(**kw)(A)
+    assert qb.QR_BLOCKFP_LAUNCHES == before + 1
+    Qc, Rc = QRDEngine(device="cpu", **kw)(A)
+    assert torch.equal(Qg.cpu(), Qc) and torch.equal(Rg.cpu(), Rc)
+    rng = np.random.default_rng(8)
+    xs, ds = rng.normal(size=(10, 4)), rng.normal(size=10)
+    states = [RLSState(4, mode="block", block=3, device=d) for d in (cuda, "cpu")]
+    for st in states:
+        for x, d in zip(xs, ds):
+            st.update(x, d)
+        st.flush()
+    assert torch.equal(states[0].R.cpu(), states[1].R)
+    assert torch.equal(states[0].z.cpu(), states[1].z)

@@ -220,6 +220,12 @@ def test_resolve_tiles_equal_jax():
 
 
 def test_block_fp_tiled_route_is_not_ported():
-    cfg = tapi.QRDConfig(backend="blockfp_pallas", tiling="panel")
-    with pytest.raises(NotImplementedError, match="A5/B2/B4"):
-        ttiled._leaf_qr_fn(cfg, 8)
+    # named when the block-FP tiled routes were still to port; they are
+    # ported now (ROADMAP A7), and the leaf primitive is the block-FP panel
+    # route, equal to the block-FP flat route
+    cfg = tapi.QRDConfig(backend="blockfp_pallas", tiling="panel", hub=True,
+                         iters=24)
+    A = torch.tensor(np.random.default_rng(4).normal(size=(2, 7, 4)))
+    Q, R = ttiled._leaf_qr_fn(cfg, 3)(A, True)
+    Qf, Rf = tq.qr_blockfp_pallas(A, iters=24, hub=True)
+    assert torch.equal(Q, Qf) and torch.equal(R, Rf)
