@@ -9,15 +9,19 @@ the three routes of ``QRDEngine(backend='cordic_pallas')`` and ``.solve``
 at full width — flat (8192 x 32 x 32), panel (1024 x 64 x 64) and TSQR
 (32 x 4096 x 32) — then the same routes of the int32 block-FP lane
 ``QRDEngine(backend='blockfp_pallas')`` and its streaming QRD-RLS
-(``engine.rls``), checks the results, times the kernels with CUDA events,
-and prints one JSON line describing each kernel followed by a final
-``{"ok": true, "device": ...}`` line.  Any failed phase exits non-zero.
+(``engine.rls``), then the Sameh–Kuck wavefront of both lanes
+(``schedule='sameh_kuck'``) and the complex datapath (``dtype=
+'complex128'``, both schedules, and the MIMO detector's 4 x 4 solve),
+checks the results, times the kernels with CUDA events, and prints one
+JSON line describing each kernel followed by a final ``{"ok": true,
+"device": ...}`` line.  Any failed phase exits non-zero.
 There is no CPU fallback: without a CUDA device the script fails.  It
 imports neither ``jax`` nor ``repro``.
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
 import statistics
@@ -30,10 +34,11 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 
-from repro_torch.core.formats import HALF, SINGLE, pack_fields  # noqa: E402
+from repro_torch.core.formats import HALF, SINGLE, pack_fields, packed_is_zero  # noqa: E402
 from repro_torch.core.givens import GivensConfig, GivensUnit  # noqa: E402
-from repro_torch.core.qrd import givens_schedule  # noqa: E402
-from repro_torch.core.qrd import qr_blockfp_pallas, qr_cordic_pallas  # noqa: E402
+from repro_torch.core.qrd import givens_schedule, sameh_kuck_schedule  # noqa: E402
+from repro_torch.core.qrd import (qr_blockfp_pallas, qr_cordic_complex_pallas,  # noqa: E402
+                                  qr_cordic_pallas)
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import qrd_blocked as qb  # noqa: E402
 from repro_torch.qrd import QRDEngine, RLSState, SOLVE_TOLERANCES  # noqa: E402
@@ -75,7 +80,11 @@ COUNTERS = {"qr_packed": "QR_PACKED_LAUNCHES",
             "panel_apply_packed": "PANEL_APPLY_LAUNCHES",
             "qr_blockfp": "QR_BLOCKFP_LAUNCHES",
             "panel_factor_blockfp": "PANEL_FACTOR_BLOCKFP_LAUNCHES",
-            "panel_apply_blockfp": "PANEL_APPLY_BLOCKFP_LAUNCHES"}
+            "panel_apply_blockfp": "PANEL_APPLY_BLOCKFP_LAUNCHES",
+            "qr_packed_wavefront": "QR_PACKED_WAVEFRONT_LAUNCHES",
+            "qr_blockfp_wavefront": "QR_BLOCKFP_WAVEFRONT_LAUNCHES",
+            "qr_packed_complex": "QR_PACKED_COMPLEX_LAUNCHES",
+            "qr_packed_complex_wavefront": "QR_PACKED_COMPLEX_WAVEFRONT_LAUNCHES"}
 
 #: The panel kernels of each lane, and the bytes of one word.
 LANES = {"packed": ("panel_factor_packed", "panel_apply_packed"),
@@ -1093,6 +1102,611 @@ def blockfp_timing_phase(A):
                 shape=list(X.shape))
 
 
+# ---------------------------------------------------------------------------
+# The Sameh–Kuck wavefront (B5a, B5b) and the complex datapath (B7a, B7b)
+# ---------------------------------------------------------------------------
+#: (m, n, compute_q) of the wavefront parity phase: square and non-square
+#: shapes (stages with fewer pairs than the widest: the tables' padding).
+WF_PARITY_SHAPES = ((4, 4, True), (6, 3, True), (3, 6, True), (2, 3, False),
+                    (32, 32, True))
+
+#: (m, n, compute_q) of the complex parity phase.
+CPLX_PARITY_SHAPES = ((4, 4, True), (6, 3, True), (3, 6, True), (2, 3, False))
+
+#: The complex limit of the JAX package: max |QR - A| and max |QhQ - I|,
+#: elementwise, at 5 x 4 (tests/test_qrd_complex.py).
+CPLX_TOL = 2e-5
+
+#: The batch at which each plain version's one launch is timed (at the full
+#: batch the complex plain loop alone would take minutes).
+PLAIN_BATCH = 1024
+
+#: The MIMO detector of examples/mimo_detection.py: 4 x 4 complex channels,
+#: one received vector each.  SOLVE_TOLERANCES is documented for
+#: well-conditioned inputs, and a batch of random square channels has an
+#: ill-conditioned tail (2-norm condition numbers: median 7.4, 99.9% below
+#: 193, the largest 1601 in this batch); its forward error is gated on the
+#: matrices with a condition number up to MIMO_KAPPA_MAX, a bound of this
+#: script's choosing, and every matrix's backward error at the same limit.
+MIMO_BATCH, MIMO_M, MIMO_KAPPA_MAX = 65536, 4, 100.0
+
+#: The wavefront kernel of each lane.
+WF_KERNELS = {"packed": "qr_packed_wavefront", "blockfp": "qr_blockfp_wavefront"}
+
+
+def flat_order(m, n):
+    """The Sameh–Kuck stages of an m x n matrix flattened into steps."""
+    return tuple(s for st in sameh_kuck_schedule(m, n) for s in st)
+
+
+def stage_tables(m, n):
+    return ops._stage_tables(sameh_kuck_schedule(m, n), m)
+
+
+def check_plain(what, kernel, reference, X, *args, **kw):
+    """A kernel against its plain version on the same words: bit-equal or
+    fail.  ``tile_b`` and ``table_layout`` go to the kernel only."""
+    got = kernel(X, *args, **kw)
+    want = reference(X, *args, **{k: v for k, v in kw.items()
+                                  if k not in ("tile_b", "table_layout")})
+    torch.cuda.synchronize()
+    compare(what, got, want)
+    return got
+
+
+def wavefront_parity_phase(device):
+    """B5a and B5b bit-equal to their plain versions, and to B1 and B2 on
+    the flattened stage schedule: HUB and IEEE at N = 26, HUB and
+    conventional x iters 24 and 30, square and non-square shapes, random
+    and edge words, ragged batches, both table layouts."""
+    rng = np.random.default_rng(SEED + 9)
+    layouts = itertools.cycle(qb.TABLE_LAYOUTS)
+    n_packed = n_bfp = 0
+    for cfg in parity_configs()[:4]:
+        for (m, n, cq) in WF_PARITY_SHAPES:
+            e = n + (m if cq else 0)
+            tabs = stage_tables(m, n)
+            for P in (encoded_words(cfg, 16, m, n, cq, rng, device),
+                      edge_words(cfg, 16, m, e, rng, device)):
+                what = f"qr_packed_wavefront {cfg} at {tuple(P.shape)}"
+                got = check_plain(what, qb.qr_packed_wavefront_call,
+                                  qb.qr_packed_wavefront_reference, P, *tabs,
+                                  cfg=cfg, table_layout=next(layouts))
+                compare(f"{what} against qr_packed on the flattened stages",
+                        got, qb.qr_packed_call(P, cfg=cfg,
+                                               steps=flat_order(m, n)))
+                n_packed += 1
+        P = encoded_words(cfg, 5, 6, 4, True, rng, device)
+        for tile_b in (4, 2):                 # a ragged batch of 5
+            check_plain(f"qr_packed_wavefront {cfg}, tile_b={tile_b}",
+                        qb.qr_packed_wavefront_call,
+                        qb.qr_packed_wavefront_reference, P,
+                        *stage_tables(6, 4), cfg=cfg, tile_b=tile_b)
+            n_packed += 1
+    for hub, iters in BFP_CONFIGS:
+        kw = dict(iters=iters, hub=hub)
+        for (m, n, cq) in WF_PARITY_SHAPES:
+            e = n + (m if cq else 0)
+            tabs = stage_tables(m, n)
+            for edge in (False, True):
+                X = bfp_words(16, m, e, rng, device, edge)
+                what = f"qr_blockfp_wavefront {kw} at {tuple(X.shape)}"
+                got = check_plain(what, qb.qr_blockfp_wavefront_call,
+                                  qb.qr_blockfp_wavefront_reference, X, *tabs,
+                                  table_layout=next(layouts), **kw)
+                compare(f"{what} against qr_blockfp on the flattened stages",
+                        got, qb.qr_blockfp_call(X, steps=flat_order(m, n),
+                                                **kw))
+                n_bfp += 1
+        X = bfp_words(5, 6, 10, rng, device)
+        for tile_b in (4, 2):
+            check_plain(f"qr_blockfp_wavefront {kw}, tile_b={tile_b}",
+                        qb.qr_blockfp_wavefront_call,
+                        qb.qr_blockfp_wavefront_reference, X,
+                        *stage_tables(6, 4), tile_b=tile_b, **kw)
+            n_bfp += 1
+    print(f"parity: qr_packed_wavefront bit-equal to its plain version and to "
+          f"qr_packed on the flattened stages on {n_packed} cases (4 configs "
+          f"at N=26); qr_blockfp_wavefront to its plain version and to "
+          f"qr_blockfp on {n_bfp} cases ((hub, iters) in {BFP_CONFIGS}); "
+          f"shapes {[s[:2] for s in WF_PARITY_SHAPES]}, random + edge words, "
+          f"ragged B=5, table layouts {qb.TABLE_LAYOUTS}", flush=True)
+
+
+def complex_words(cfg, B, m, n, compute_q, rng, device, edge=False):
+    """Packed (re, im) words of random complex [A | I] working matrices of
+    moderate range.  With ``edge``: `edge_words` on the real lanes, exactly
+    real leads (imaginary words +0 and -0) in columns 0 and 1 of every
+    other row, a zero lead (both lanes) in row 1 and an all-zero column."""
+    A = ((rng.normal(size=(B, m, n)) + 1j * rng.normal(size=(B, m, n)))
+         * np.exp2(rng.integers(-8, 8, size=(B, m, n))))
+    if compute_q:
+        A = np.concatenate([A, np.broadcast_to(np.eye(m), (B, m, m))], axis=-1)
+    unit = GivensUnit(cfg)
+    P = torch.stack([unit.encode(torch.tensor(A.real)),
+                     unit.encode(torch.tensor(A.imag))], dim=-1).to(device)
+    if edge:
+        e = P.shape[-2]
+        neg_zero = 1 << (cfg.fmt.exp_bits + cfg.fmt.man_bits)
+        P[..., 0] = edge_words(cfg, B, m, e, rng, device)
+        P[:, 0::2, :min(2, e), 1] = 0
+        P[:, 1::4, :min(2, e), 1] = neg_zero
+        if m > 1:
+            P[:, 1, 0, :] = 0
+        P[:, :, min(2, e - 1), :] = 0
+    return P.contiguous()
+
+
+def complex_parity_phase(device):
+    """B7a and B7b bit-equal to their plain versions: HUB and IEEE at
+    N = 26, random and edge words, ragged batches; B7b also to B7a on the
+    flattened stages; on purely real words B7a gives B1's words on the real
+    lane and exact 0 on the imaginary lane (B7b: B5a's)."""
+    rng = np.random.default_rng(SEED + 10)
+    layouts = itertools.cycle(qb.TABLE_LAYOUTS)
+    n_flat = n_wf = 0
+    for i, cfg in enumerate(parity_configs()[:4]):
+        shapes = CPLX_PARITY_SHAPES + (((16, 16, True),) if i % 2 else ())
+        for (m, n, cq) in shapes:
+            tabs = stage_tables(m, n)
+            for edge in (False, True):
+                P = complex_words(cfg, 8, m, n, cq, rng, device, edge)
+                what = f"{cfg} at {tuple(P.shape)}, edge={edge}"
+                check_plain(f"qr_packed_complex {what}", qb.qr_packed_complex_call,
+                            qb.qr_packed_complex_reference, P, cfg=cfg,
+                            steps=givens_schedule(m, n))
+                got = check_plain(f"qr_packed_complex_wavefront {what}",
+                                  qb.qr_packed_complex_wavefront_call,
+                                  qb.qr_packed_complex_wavefront_reference, P,
+                                  *tabs, cfg=cfg, table_layout=next(layouts))
+                compare(f"qr_packed_complex_wavefront {what} against "
+                        f"qr_packed_complex on the flattened stages", got,
+                        qb.qr_packed_complex_call(P, cfg=cfg,
+                                                  steps=flat_order(m, n)))
+                n_flat += 1
+                n_wf += 1
+        P = complex_words(cfg, 8, 6, 3, True, rng, device)
+        P[..., 1] = 0                             # purely real
+        real = P[..., 0].contiguous()
+        got = check_plain(f"qr_packed_complex {cfg}, purely real",
+                          qb.qr_packed_complex_call, qb.qr_packed_complex_reference,
+                          P, cfg=cfg, steps=givens_schedule(6, 3))
+        compare(f"qr_packed_complex {cfg}, purely real: real lane against "
+                f"qr_packed", got[..., 0].contiguous(),
+                qb.qr_packed_call(real, cfg=cfg, steps=givens_schedule(6, 3)))
+        if not packed_is_zero(got[..., 1], cfg.fmt).all():
+            fail(f"qr_packed_complex {cfg}, purely real: an imaginary word "
+                 f"is not +-0")
+        got = qb.qr_packed_complex_wavefront_call(P, *stage_tables(6, 3), cfg=cfg)
+        compare(f"qr_packed_complex_wavefront {cfg}, purely real: against "
+                f"qr_packed_wavefront", got[..., 0].contiguous(),
+                qb.qr_packed_wavefront_call(real, *stage_tables(6, 3), cfg=cfg))
+        if not packed_is_zero(got[..., 1], cfg.fmt).all():
+            fail(f"qr_packed_complex_wavefront {cfg}, purely real: an "
+                 f"imaginary word is not +-0")
+        n_flat += 1
+        n_wf += 1
+        P = complex_words(cfg, 5, 6, 4, True, rng, device)
+        for tile_b in (4, 2):                 # a ragged batch of 5
+            check_plain(f"qr_packed_complex {cfg}, tile_b={tile_b}",
+                        qb.qr_packed_complex_call, qb.qr_packed_complex_reference,
+                        P, cfg=cfg, steps=givens_schedule(6, 4), tile_b=tile_b)
+            check_plain(f"qr_packed_complex_wavefront {cfg}, tile_b={tile_b}",
+                        qb.qr_packed_complex_wavefront_call,
+                        qb.qr_packed_complex_wavefront_reference, P,
+                        *stage_tables(6, 4), cfg=cfg, tile_b=tile_b)
+            n_flat += 1
+            n_wf += 1
+    print(f"parity: qr_packed_complex bit-equal to its plain version on "
+          f"{n_flat} cases, qr_packed_complex_wavefront to its plain version "
+          f"and to qr_packed_complex on the flattened stages on {n_wf} cases "
+          f"(4 configs at N=26; shapes {[s[:2] for s in CPLX_PARITY_SHAPES]} "
+          f"and 16 x 16; random + edge words with exactly real and zero "
+          f"leads and an all-zero column; purely real words against "
+          f"qr_packed / qr_packed_wavefront with +-0 imaginary words; "
+          f"ragged B=5)", flush=True)
+
+
+def lane_flat_qr(lane):
+    """The lane's flat kernel route (HUB) on a given step order."""
+    if lane == "packed":
+        unit = GivensUnit(GivensConfig(hub=True, n=26))
+        return lambda X, steps: qr_cordic_pallas(X, unit, steps=steps)
+    return lambda X, steps: qr_blockfp_pallas(X, iters=24, hub=True,
+                                              steps=steps)
+
+
+def lane_words(lane, A):
+    """The HUB words of [A | I] on the lane (packed int64 or block-FP
+    int32) and the lane's wavefront and flat kernels on them, the flat one
+    on the flattened stage schedule; and their plain versions."""
+    m, n = A.shape[-2:]
+    eye = torch.eye(m, dtype=A.dtype, device=A.device).expand(*A.shape[:-1], m)
+    W = torch.cat([A, eye], dim=-1)
+    tabs, steps = stage_tables(m, n), flat_order(m, n)
+    if lane == "packed":
+        g = GivensConfig(hub=True, n=26)
+        X = GivensUnit(g).encode(W).contiguous()
+        return X, dict(
+            wavefront=lambda X: qb.qr_packed_wavefront_call(X, *tabs, cfg=g),
+            flat=lambda X: qb.qr_packed_call(X, cfg=g, steps=steps),
+            plain=lambda X: qb.qr_packed_wavefront_reference(X, *tabs, cfg=g),
+            decode=GivensUnit(g).decode)
+    X = ops._blockfp_encode(W, 24)[0].contiguous()
+    kw = dict(iters=24, hub=True)
+    return X, dict(
+        wavefront=lambda X: qb.qr_blockfp_wavefront_call(X, *tabs, **kw),
+        flat=lambda X: qb.qr_blockfp_call(X, steps=steps, **kw),
+        plain=lambda X: qb.qr_blockfp_wavefront_reference(X, *tabs, **kw),
+        decode=lambda X: X.to(torch.float64))
+
+
+def kernel_pair_timing(what, X, first, second, repeats=5):
+    """Two kernels on the same words, warm, each timed with CUDA events
+    (median of ``repeats``), in turns: first, second, second, first.
+    Their outputs must be bit-equal.  Returns both times."""
+    first(X)
+    second(X)
+    t1, out1 = _event_ms(lambda: first(X), repeats)
+    t2, out2 = _event_ms(lambda: second(X), repeats)
+    t2b, _ = _event_ms(lambda: second(X), repeats)
+    t1b, _ = _event_ms(lambda: first(X), repeats)
+    compare(what, out1, out2)
+    return statistics.median([t1, t1b]), statistics.median([t2, t2b])
+
+
+def plain_timing(what, kernel, plain, X, decode):
+    """One launch of a plain version at `PLAIN_BATCH` matrices beside the
+    kernel on the same words: bit-equal or fail.  Returns (plain ms, max
+    |decoded kernel - decoded plain|)."""
+    Xp = X[:PLAIN_BATCH].contiguous()
+    got = kernel(Xp)
+    plain_ms, want = _event_ms(lambda: plain(Xp), 1)
+    compare(f"{what} at {tuple(Xp.shape)} against its plain version", got, want)
+    return plain_ms, (decode(got) - decode(want)).abs().max().item()
+
+
+def wavefront_path(device, lane, A, As, b):
+    """QRDEngine(schedule='sameh_kuck') on ``lane`` at the main path's
+    shapes: Q and R bit-equal to the flat kernel on the flattened stage
+    schedule, the flat path's limits, the solve, one wavefront launch per
+    engine call; the wavefront kernel timed beside the flat kernel on the
+    same words, and its plain version at `PLAIN_BATCH`."""
+    spec = PATH_LANES[lane]
+    label = spec["label"]
+    kernel = WF_KERNELS[lane]
+    eng = lane_engine(lane, device, schedule="sameh_kuck")
+    (Q, R), call_counts = counted_call(eng, A)
+    x, solve_counts = counted_call(eng.solve, As, b)
+    want = {name: int(name == kernel) for name in COUNTERS}
+    for what, counts in (("engine call", call_counts), ("solve", solve_counts)):
+        if counts != want:
+            fail(f"{label}wavefront path, {what}: launches {counts}, expected "
+                 f"{want}")
+    if Q.shape != (BATCH, M, M) or R.shape != (BATCH, M, N_COLS):
+        fail(f"{label}wavefront: shapes {tuple(Q.shape)} {tuple(R.shape)}")
+    if not (torch.isfinite(Q).all() and torch.isfinite(R).all()):
+        fail(f"{label}wavefront: non-finite factors")
+    if torch.count_nonzero(torch.tril(R, -1)).item() != 0:
+        fail(f"{label}wavefront: R has non-zero entries below the diagonal")
+    Qf, Rf = lane_flat_qr(lane)(A, flat_order(M, N_COLS))
+    compare(f"{label}wavefront: Q against {spec['flat']} on the flattened "
+            f"stages", Q.view(torch.int64), Qf.view(torch.int64))
+    compare(f"{label}wavefront: R against {spec['flat']} on the flattened "
+            f"stages", R.view(torch.int64), Rf.view(torch.int64))
+    if lane == "packed":
+        resid, orth, worst = qr_errors(A, Q, R)
+        ok = resid <= QR_TOL and orth <= QR_TOL
+        text = (f"max |QR-A|/|A| = {resid:.3e}, max |QtQ-I| = {orth:.3e} "
+                f"(matrix {worst}; limit {QR_TOL})")
+    else:
+        snr, orth = snr_db(A, Q, R), max_orth(Q)
+        ok = snr.mean().item() > BFP_SNR_DB and orth < BFP_ORTH_TOL
+        text = (f"mean SNR {snr.mean().item():.2f} dB (min "
+                f"{snr.min().item():.2f}; limit > {BFP_SNR_DB}), max |QtQ-I| = "
+                f"{orth:.3e} (limit {BFP_ORTH_TOL})")
+    if not ok:
+        fail(f"{label}wavefront: {text}")
+    ref = torch.linalg.lstsq(As, b[..., None]).solution[..., 0]
+    sol_err = (torch.linalg.vector_norm(x - ref, dim=-1)
+               / torch.linalg.vector_norm(ref, dim=-1)).max().item()
+    tol = SOLVE_TOLERANCES[spec["backend"]]
+    if not (x.shape == (BATCH, N_SOLVE) and torch.isfinite(x).all()
+            and sol_err <= tol):
+        fail(f"{label}wavefront solve: relative error {sol_err} (limit {tol})")
+    X, fns = lane_words(lane, A)
+    ms, flat_ms = kernel_pair_timing(f"{kernel} against {spec['flat']} on the "
+                                     f"flattened stages", X, fns["wavefront"],
+                                     fns["flat"])
+    plain_ms, err = plain_timing(kernel, fns["wavefront"], fns["plain"], X,
+                                 fns["decode"])
+    print(f"{label}wavefront path (sameh_kuck): Q {tuple(Q.shape)} R "
+          f"{tuple(R.shape)} bit-equal to {spec['flat']} on the flattened "
+          f"stages; {text}; solve x {tuple(x.shape)} max |x-x_lstsq|/"
+          f"|x_lstsq| = {sol_err:.3e} (limit {tol}); launches {call_counts} "
+          f"in the engine call and {solve_counts} in the solve, each as "
+          f"planned", flush=True)
+    print(f"timing {kernel} at {tuple(X.shape)}: {ms:.3f} ms, {spec['flat']} on "
+          f"the same words {flat_ms:.3f} ms (medians of 2 x 5, in turns); "
+          f"plain version {plain_ms:.1f} ms for one launch at "
+          f"{PLAIN_BATCH} matrices", flush=True)
+    return dict(launches=call_counts[kernel] + solve_counts[kernel],
+                per_call=call_counts[kernel], ms=ms, flat_ms=flat_ms,
+                plain_ms=plain_ms, max_abs_err=err, shape=list(X.shape))
+
+
+def wavefront_big_phase(device):
+    """B5a with its tiles in device memory: QRDEngine(schedule=
+    'sameh_kuck') at 128 x 128 with Q against B1 on the flattened stages."""
+    A = torch.tensor(big_operand(), device=device)
+    e = 2 * BIG_M
+    if BIG_M * e * 8 <= qb.MAX_SHARED_BYTES:
+        fail(f"{BIG_M} x {e} fits shared memory; the phase needs a larger tile")
+    (Q, R), counts = counted_call(lane_engine("packed", device,
+                                              schedule="sameh_kuck"), A)
+    if counts["qr_packed_wavefront"] != 1 or sum(counts.values()) != 1:
+        fail(f"wavefront 128 x 128: launches {counts}")
+    Qf, Rf = lane_flat_qr("packed")(A, flat_order(BIG_M, BIG_M))
+    compare("wavefront 128 x 128 (device-memory tile): Q against qr_packed on "
+            "the flattened stages", Q.view(torch.int64), Qf.view(torch.int64))
+    compare("wavefront 128 x 128 (device-memory tile): R against qr_packed on "
+            "the flattened stages", R.view(torch.int64), Rf.view(torch.int64))
+    resid, orth, worst = qr_errors(A, Q, R)
+    if not (resid <= qr_tol(BIG_M) and orth <= qr_tol(BIG_M)):
+        fail(f"wavefront 128 x 128: |QR-A|/|A| = {resid}, |QtQ-I| = {orth} "
+             f"(limit {qr_tol(BIG_M)})")
+    X, fns = lane_words("packed", A)
+    ms, flat_ms = kernel_pair_timing("qr_packed_wavefront at 128 x 128", X,
+                                     fns["wavefront"], fns["flat"], repeats=3)
+    print(f"wavefront at {tuple(A.shape)} with Q: tile {BIG_M} x {e} int64 in "
+          f"device memory; Q and R bit-equal to qr_packed on the flattened "
+          f"stages; max |QR-A|/|A| = {resid:.3e}, |QtQ-I| = {orth:.3e} (matrix "
+          f"{worst}; limit {qr_tol(BIG_M):.0e}); qr_packed_wavefront {ms:.3f} "
+          f"ms, qr_packed {flat_ms:.3f} ms on the same words (medians of "
+          f"2 x 3, in turns)", flush=True)
+    return dict(ms=ms, flat_ms=flat_ms, shape=list(X.shape),
+                launches=counts["qr_packed_wavefront"])
+
+
+def complex_operands(B, m, n, seed):
+    """Random complex (B, m, n) matrices, from a seed."""
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=(B, m, n)) + 1j * rng.normal(size=(B, m, n))
+
+
+def complex_errors(A, Q, R):
+    """Per matrix: the relative residual |QR - A|/|A| and |QhQ - I|
+    (Frobenius), and the largest elementwise |QR - A| and |QhQ - I|.
+    Returns (max resid, max orth, worst orth matrix, max-abs resid,
+    max-abs orth, worst max-abs matrix)."""
+    eye = torch.eye(Q.shape[-1], dtype=Q.dtype, device=Q.device)
+    D = Q @ R - A
+    O = Q.mH @ Q - eye
+    fro = torch.linalg.matrix_norm
+    resid = fro(D) / fro(A)
+    orth = fro(O)
+    mabs = torch.maximum(D.abs().amax(dim=(-2, -1)), O.abs().amax(dim=(-2, -1)))
+    return (resid.max().item(), orth.max().item(), int(orth.argmax()),
+            D.abs().max().item(), O.abs().max().item(), int(mabs.argmax()))
+
+
+def check_complex_factors(what, A, Q, R, fro_tol):
+    """Shapes, finiteness, R's exact structure (the pivots' diagonal
+    entries real and non-negative, the lower triangle zero), and the
+    accuracy: the JAX package's max-abs limit
+    `CPLX_TOL` where met, else printed as unmet and gated at ``fro_tol``
+    (per matrix, Frobenius).  Returns the printed text."""
+    B, m, n = A.shape
+    if Q.shape != (B, m, m) or R.shape != (B, m, n):
+        fail(f"{what}: shapes {tuple(Q.shape)} {tuple(R.shape)}")
+    if not (torch.isfinite(torch.view_as_real(Q)).all()
+            and torch.isfinite(torch.view_as_real(R)).all()):
+        fail(f"{what}: non-finite factors")
+    if torch.count_nonzero(torch.tril(R, -1)).item() != 0:
+        fail(f"{what}: R has non-zero entries below the diagonal")
+    # the pivots' realized leads; with m == n the last diagonal entry is
+    # no pivot and keeps its phase
+    d = torch.diagonal(R, dim1=-2, dim2=-1)[..., :min(m - 1, n)]
+    if not (torch.all(d.imag == 0) and torch.all(d.real >= 0)):
+        fail(f"{what}: R's pivot diagonal is not real and non-negative")
+    resid, orth, worst, abs_resid, abs_orth, worst_abs = complex_errors(A, Q, R)
+    met = abs_resid <= CPLX_TOL and abs_orth <= CPLX_TOL
+    if not met and not (resid <= fro_tol and orth <= fro_tol):
+        fail(f"{what}: max |QR-A| = {abs_resid}, max |QhQ-I| = {abs_orth} "
+             f"(JAX limit {CPLX_TOL}); per matrix |QR-A|/|A| = {resid}, "
+             f"|QhQ-I| = {orth} (limit {fro_tol})")
+    return (f"max |QR-A| = {abs_resid:.3e}, max |QhQ-I| = {abs_orth:.3e} "
+            f"(matrix {worst_abs}) against the JAX package's {CPLX_TOL:.0e} "
+            f"(5 x 4): {'met' if met else f'UNMET, gated at {fro_tol:.1e} per matrix'}; "
+            f"per matrix max |QR-A|/|A| = {resid:.3e}, |QhQ-I| = {orth:.3e} "
+            f"(matrix {worst}); R's first {min(m - 1, n)} diagonal entries "
+            f"real and >= 0, lower triangle 0")
+
+
+def complex_engine(device, schedule):
+    return QRDEngine(backend="cordic_pallas", dtype="complex128",
+                     givens=GivensConfig(hub=True, n=26), schedule=schedule,
+                     device=device)
+
+
+def check_complex_solve(what, eng, A, b, kernel, kappa_max=None):
+    """A complex solve on the card: one launch of ``kernel``, and the
+    relative error against a float64 least-squares solve within
+    SOLVE_TOLERANCES['cordic_pallas:complex'].  That limit is documented
+    for well-conditioned inputs; with ``kappa_max`` it is gated only on
+    the matrices whose 2-norm condition number is at most ``kappa_max``,
+    the largest error over all matrices is printed met or unmet, and every
+    matrix is held to the same limit as a normwise backward error
+    |Ax - b| / (|A| |x| + |b|), which a backward-stable solve keeps small
+    whatever the conditioning.  Returns (the launches counted, text)."""
+    x, counts = counted_call(eng.solve, A, b)
+    want = {name: int(name == kernel) for name in COUNTERS}
+    if counts != want:
+        fail(f"{what}: launches {counts}, expected {want}")
+    ref = torch.linalg.lstsq(A, b[..., None]).solution[..., 0]
+    rel = (torch.linalg.vector_norm(x - ref, dim=-1)
+           / torch.linalg.vector_norm(ref, dim=-1))
+    err = rel.max().item()
+    tol = SOLVE_TOLERANCES["cordic_pallas:complex"]
+    if not (x.shape == A.shape[:-2] + (A.shape[-1],) and x.is_complex()
+            and torch.isfinite(torch.view_as_real(x)).all()):
+        fail(f"{what}: x {tuple(x.shape)} {x.dtype}, or not finite")
+    if kappa_max is None:
+        if not err <= tol:
+            fail(f"{what}: relative error {err} (limit {tol})")
+        return counts, (f"{what}: x {tuple(x.shape)} max |x-x_lstsq|/"
+                        f"|x_lstsq| = {err:.3e} (limit {tol}), 1 {kernel} "
+                        f"launch")
+    kappa = torch.linalg.cond(A)
+    well = kappa <= kappa_max
+    err_well = rel[well].max().item()
+    resid = torch.linalg.vector_norm(
+        (A @ x[..., None])[..., 0] - b, dim=-1)
+    eta = (resid / (torch.linalg.matrix_norm(A, ord=2)
+                    * torch.linalg.vector_norm(x, dim=-1)
+                    + torch.linalg.vector_norm(b, dim=-1))).max().item()
+    if not (err_well <= tol and eta <= tol):
+        fail(f"{what}: relative error {err_well} on the matrices with "
+             f"cond <= {kappa_max}, backward error {eta} (limit {tol})")
+    worst = int(rel.argmax())
+    return counts, (
+        f"{what}: x {tuple(x.shape)}; max |x-x_lstsq|/|x_lstsq| = {err:.3e} "
+        f"(matrix {worst}, cond {kappa[worst].item():.1f}) against "
+        f"SOLVE_TOLERANCES['cordic_pallas:complex'] = {tol}: "
+        f"{'met' if err <= tol else f'UNMET on {int((rel > tol).sum())} of {rel.numel()} matrices'}; "
+        f"gated: {err_well:.3e} on the {int(well.sum())} matrices with cond "
+        f"<= {kappa_max} and backward error {eta:.3e} on all (limit {tol}); "
+        f"1 {kernel} launch")
+
+
+def complex_path(device):
+    """QRDEngine(backend='cordic_pallas', dtype='complex128') at full width
+    on both schedules, the complex solves (and the MIMO detector's), and
+    both complex kernels with their tiles in device memory at 128 x 128;
+    the kernels timed, and their plain versions at `PLAIN_BATCH`."""
+    g = GivensConfig(hub=True, n=26)
+    unit = GivensUnit(g)
+    A = torch.tensor(complex_operands(BATCH, M, N_COLS, SEED + 11), device=device)
+    engines = {s: complex_engine(device, s) for s in ("col", "sameh_kuck")}
+    kernels = {"col": "qr_packed_complex",
+               "sameh_kuck": "qr_packed_complex_wavefront"}
+    results, lines, launched, per_call = {}, [], [], {}
+    for sched, eng in engines.items():
+        results[sched], counts = counted_call(eng, A)
+        launched.append(counts)
+        per_call[kernels[sched]] = counts[kernels[sched]]
+        want = {name: int(name == kernels[sched]) for name in COUNTERS}
+        if counts != want:
+            fail(f"complex path {sched}: launches {counts}, expected {want}")
+        lines.append(f"complex path {sched}: Q {tuple(results[sched][0].shape)} "
+                     f"{results[sched][0].dtype}, " + check_complex_factors(
+                         f"complex path {sched}", A, *results[sched],
+                         qr_tol(M)))
+    Qf, Rf = qr_cordic_complex_pallas(A, unit, steps=flat_order(M, N_COLS))
+    for name, got, want in (("Q", results["sameh_kuck"][0], Qf),
+                            ("R", results["sameh_kuck"][1], Rf)):
+        compare(f"complex wavefront: {name} against qr_packed_complex on the "
+                f"flattened stages", torch.view_as_real(got).view(torch.int64),
+                torch.view_as_real(want).view(torch.int64))
+    for line in lines:
+        print(line, flush=True)
+    print("complex path: the wavefront's Q and R bit-equal to "
+          "qr_packed_complex on the flattened stages", flush=True)
+
+    rng = np.random.default_rng(SEED + 12)
+    As = torch.tensor(complex_operands(BATCH, M, N_SOLVE, SEED + 13), device=device)
+    b = torch.tensor(rng.normal(size=(BATCH, M)) + 1j * rng.normal(size=(BATCH, M)),
+                     device=device)
+    Am = torch.tensor(complex_operands(MIMO_BATCH, MIMO_M, MIMO_M, SEED + 14),
+                      device=device)
+    bm = torch.tensor(rng.normal(size=(MIMO_BATCH, MIMO_M))
+                      + 1j * rng.normal(size=(MIMO_BATCH, MIMO_M)), device=device)
+    for sched, eng in engines.items():
+        counts, text = check_complex_solve(f"complex solve {sched}", eng, As, b,
+                                           kernels[sched])
+        launched.append(counts)
+        print(text, flush=True)
+    counts, text = check_complex_solve("MIMO detector solve (col)",
+                                       engines["col"], Am, bm,
+                                       "qr_packed_complex",
+                                       kappa_max=MIMO_KAPPA_MAX)
+    launched.append(counts)
+    print(text, flush=True)
+
+    # the complex words of [A | I] and both kernels on them
+    eye = torch.eye(M, dtype=A.dtype, device=device).expand(BATCH, M, M)
+    W = torch.cat([A, eye], dim=-1)
+    P = torch.stack([unit.encode(W.real), unit.encode(W.imag)], dim=-1).contiguous()
+    tabs, steps = stage_tables(M, N_COLS), givens_schedule(M, N_COLS)
+    flat = lambda X: qb.qr_packed_complex_call(X, cfg=g, steps=steps)  # noqa: E731
+    wave = lambda X: qb.qr_packed_complex_wavefront_call(X, *tabs, cfg=g)  # noqa: E731
+    flat_so = lambda X: qb.qr_packed_complex_call(  # noqa: E731
+        X, cfg=g, steps=flat_order(M, N_COLS))
+    wave_ms, flat_so_ms = kernel_pair_timing(
+        "qr_packed_complex_wavefront against qr_packed_complex on the "
+        "flattened stages", P, wave, flat_so)
+    flat(P)
+    flat_ms, _ = _event_ms(lambda: flat(P), 5)
+    decode = unit.decode
+    plain = {}
+    plain["qr_packed_complex"] = plain_timing(
+        "qr_packed_complex", flat, lambda X: qb.qr_packed_complex_reference(
+            X, cfg=g, steps=steps), P, decode)
+    plain["qr_packed_complex_wavefront"] = plain_timing(
+        "qr_packed_complex_wavefront", wave,
+        lambda X: qb.qr_packed_complex_wavefront_reference(X, *tabs, cfg=g),
+        P, decode)
+    print(f"timing at {tuple(P.shape)}: qr_packed_complex {flat_ms:.3f} ms "
+          f"(column-major, median of 5); qr_packed_complex_wavefront "
+          f"{wave_ms:.3f} ms, qr_packed_complex on the flattened stages "
+          f"{flat_so_ms:.3f} ms (medians of 2 x 5, in turns); plain versions "
+          f"{plain['qr_packed_complex'][0]:.1f} and "
+          f"{plain['qr_packed_complex_wavefront'][0]:.1f} ms for one launch at "
+          f"{PLAIN_BATCH} matrices", flush=True)
+
+    # 128 x 128 with Q: (128, 256, 2) int64 tiles, 512 KiB, in device memory
+    Ab = torch.tensor(complex_operands(BIG_BATCH, BIG_M, BIG_M, SEED + 15),
+                      device=device)
+    (Qb, Rb), counts = counted_call(engines["sameh_kuck"], Ab)
+    launched.append(counts)
+    if counts["qr_packed_complex_wavefront"] != 1 or sum(counts.values()) != 1:
+        fail(f"complex 128 x 128: launches {counts}")
+    Qbf, Rbf = qr_cordic_complex_pallas(Ab, unit, steps=flat_order(BIG_M, BIG_M))
+    for name, got, want in (("Q", Qb, Qbf), ("R", Rb, Rbf)):
+        compare(f"complex 128 x 128 (device-memory tiles): wavefront {name} "
+                f"against qr_packed_complex on the flattened stages",
+                torch.view_as_real(got).view(torch.int64),
+                torch.view_as_real(want).view(torch.int64))
+    text = check_complex_factors("complex 128 x 128", Ab, Qb, Rb, qr_tol(BIG_M))
+    eye = torch.eye(BIG_M, dtype=Ab.dtype, device=device).expand(
+        BIG_BATCH, BIG_M, BIG_M)
+    Wb = torch.cat([Ab, eye], dim=-1)
+    Pb = torch.stack([unit.encode(Wb.real), unit.encode(Wb.imag)],
+                     dim=-1).contiguous()
+    tabs_b = stage_tables(BIG_M, BIG_M)
+    big_wave_ms, big_flat_ms = kernel_pair_timing(
+        "complex 128 x 128: wavefront against flat on the flattened stages",
+        Pb, lambda X: qb.qr_packed_complex_wavefront_call(X, *tabs_b, cfg=g),
+        lambda X: qb.qr_packed_complex_call(X, cfg=g,
+                                            steps=flat_order(BIG_M, BIG_M)),
+        repeats=3)
+    print(f"complex at {tuple(Ab.shape)} with Q: tiles {BIG_M} x {2 * BIG_M} x 2 "
+          f"int64 ({BIG_M * 2 * BIG_M * 16} B) in device memory; wavefront Q "
+          f"and R bit-equal to qr_packed_complex on the flattened stages; "
+          f"{text}; qr_packed_complex_wavefront {big_wave_ms:.3f} ms, "
+          f"qr_packed_complex {big_flat_ms:.3f} ms on the same words (medians "
+          f"of 2 x 3, in turns)", flush=True)
+    return dict(ms={"qr_packed_complex": flat_ms,
+                    "qr_packed_complex_wavefront": wave_ms},
+                flat_stage_order_ms=flat_so_ms, plain=plain,
+                per_call=per_call,
+                launches=add_counts(*launched),
+                shape=list(P.shape), big_ms={"qr_packed_complex": big_flat_ms,
+                                             "qr_packed_complex_wavefront":
+                                                 big_wave_ms},
+                big_shape=list(Pb.shape))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one GPU",
@@ -1113,7 +1727,8 @@ def main():
 def run(device):
     """Every phase on ``device``; returns 0 or exits non-zero."""
     t0 = time.perf_counter()
-    sources = ["qr_packed", "panel_packed", "blockfp"]
+    sources = ["qr_packed", "panel_packed", "blockfp", "wavefront",
+               "complex_packed"]
     _build.build(sources)                      # one nvcc each, in parallel
     print(f"build: {', '.join(s + '.cu' for s in sources)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -1149,6 +1764,12 @@ def run(device):
         "block-FP tsqr path", bfp_tsqr["engine"], bfp_tsqr["A"],
         bfp_tsqr["work"], lane="blockfp")
     bfp_plain = plain_check(bfp_panel["captured"], cfg)
+
+    wavefront_parity_phase(device)
+    wave = {lane: wavefront_path(device, lane, A, As, b) for lane in LANES}
+    wave_big = wavefront_big_phase(device)
+    complex_parity_phase(device)
+    cplx = complex_path(device)
 
     kernels = [{
         "name": "qr_packed",
@@ -1282,6 +1903,82 @@ def run(device):
             "packed_lane_ms_same_shape": panel_ms[twin],
             "packed_lane_tsqr_ms": tsqr_ms[twin],
             "config": "hub iters=24 frac=24",
+        })
+    bfp_elements = BATCH * active_elements(M, N_COLS, M + N_COLS)
+    wave_bounds = {"packed": (timing["bound_ms"], timing["bound_by"]),
+                   "blockfp": (bfp_timing["bound_ms"], bfp_timing["bound_by"])}
+    wave_src = {"packed": ("src/repro/kernels/qrd_blocked.py:587",
+                           "qr_packed_wavefront_call / "
+                           "_qr_packed_wavefront_kernel", timing),
+                "blockfp": ("src/repro/kernels/qrd_blocked.py:637",
+                            "qr_blockfp_wavefront_call / "
+                            "_qr_blockfp_wavefront_kernel", bfp_timing)}
+    for lane, (where, function, flat_timing) in wave_src.items():
+        w = wave[lane]
+        bound_ms, bound_by = wave_bounds[lane]
+        entry = {
+            "name": WF_KERNELS[lane],
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/wavefront.cu",
+            "replaces": where,
+            "replaces_function": function,
+            "launches": w["launches"] + (wave_big["launches"]
+                                         if lane == "packed" else 0),
+            "launches_per_engine_call": w["per_call"],
+            "parity": "bit-equal",
+            "max_abs_err": w["max_abs_err"],
+            "ms": w["ms"],
+            "plain_ms": w["plain_ms"],
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,
+            "shape": w["shape"],
+            "plain_shape": [PLAIN_BATCH] + w["shape"][1:],
+            "plain_ms_is": f"one launch at {PLAIN_BATCH} matrices",
+            "flat_kernel_ms_same_words": w["flat_ms"],
+            "flat_kernel_ms_main_timing": flat_timing["ms"],
+            "config": ("hub n=26 iters=24" if lane == "packed"
+                       else "hub iters=24 frac=24"),
+        }
+        if lane == "packed":
+            entry.update(device_tile_ms=wave_big["ms"],
+                         device_tile_flat_ms=wave_big["flat_ms"],
+                         device_tile_shape=wave_big["shape"])
+        kernels.append(entry)
+    cplx_src = {"qr_packed_complex": ("src/repro/kernels/qrd_blocked.py:358",
+                                      "qr_packed_complex_call / "
+                                      "_qr_packed_complex_kernel"),
+                "qr_packed_complex_wavefront": (
+                    "src/repro/kernels/qrd_blocked.py:468",
+                    "qr_packed_complex_wavefront_call / "
+                    "_qr_packed_complex_wavefront_kernel")}
+    # four packed pair rotations per complex element column, on twice the
+    # bytes of the real tile
+    cplx_bound = _bound(cfg, 4 * bfp_elements, 2 * BATCH * M * (M + N_COLS) * 16)
+    for name, (where, function) in cplx_src.items():
+        plain_ms, err = cplx["plain"][name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/complex_packed.cu",
+            "replaces": where,
+            "replaces_function": function,
+            "launches": cplx["launches"][name],
+            "launches_per_engine_call": cplx["per_call"][name],
+            "parity": "bit-equal",
+            "max_abs_err": err,
+            "ms": cplx["ms"][name],
+            "plain_ms": plain_ms,
+            "bound_ms": cplx_bound[0],
+            "bound_by": cplx_bound[1],
+            "library_ms": None,
+            "shape": cplx["shape"],
+            "plain_shape": [PLAIN_BATCH] + cplx["shape"][1:],
+            "plain_ms_is": f"one launch at {PLAIN_BATCH} matrices",
+            "real_qr_packed_ms_same_shape": timing["ms"],
+            "device_tile_ms": cplx["big_ms"][name],
+            "device_tile_shape": cplx["big_shape"],
+            "config": "hub n=26 iters=24",
         })
     print(f"engine call host wall: panel path {panel_wall:.3f} ms, tsqr path "
           f"{tsqr_wall:.3f} ms; block-FP panel path {bfp_panel_wall:.3f} ms, "

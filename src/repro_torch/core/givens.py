@@ -7,8 +7,9 @@ converter, on packed int64 words.
 
 Both are vectorized over any batch shape; `rotate` broadcasts one state over
 a trailing axis of row elements.  `annihilate` is the pivot-anywhere step of
-QRD-RLS.  The complex methods of the JAX unit come
-with the complex datapath (ROADMAP A9).
+QRD-RLS.  The complex datapath is the three-rotation decomposition on
+(re, im) lane pairs: `phase_vector`, `phase_rotate` and
+`rotate_rows_complex` (complex QRD-RLS's `annihilate_complex` is ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import torch
 from . import converters as conv
 from . import cordic
 from .formats import (FloatFormat, SINGLE, encode_hub, encode_ieee,
-                      decode_hub, decode_ieee)
+                      decode_hub, decode_ieee, packed_is_zero)
 
 __all__ = ["GivensConfig", "GivensUnit"]
 
@@ -122,6 +123,65 @@ class GivensUnit:
                              (flip[..., None], sig[..., None]))
         return (torch.cat([rx0[..., None], rx], dim=-1),
                 torch.cat([ry0[..., None], ry], dim=-1))
+
+    # -- complex datapath: the three-rotation decomposition ------------------
+    def phase_vector(self, re_p, im_p):
+        """Vectoring on the (re, im) lane pair of one complex entry.
+
+        Returns ``(mag_packed, state, skip)``: the realized entry (|z|
+        packed; the raw real lane where ``skip``), the replayable ``(flip,
+        sigmas)`` phase control word, and the lanes whose imaginary word is
+        ±0, where the phase rotation is the exact identity (purely real
+        inputs then follow the real datapath bit for bit).
+        """
+        mag, _, state = self.vector(re_p, im_p)
+        skip = packed_is_zero(im_p, self.cfg.fmt)
+        return torch.where(skip, re_p, mag), state, skip
+
+    def phase_rotate(self, re_p, im_p, state, skip):
+        """Replay a phase control word on further (re, im) lane pairs;
+        where ``skip`` the inputs pass through untouched."""
+        rr, ri = self.rotate(re_p, im_p, state)
+        return torch.where(skip, re_p, rr), torch.where(skip, im_p, ri)
+
+    def rotate_rows_complex(self, row_x, row_y):
+        """Complex Givens rotation of two packed rows of (re, im) lanes.
+
+        Two phase rotations realize the lead entries of the pivot and the
+        target row, then the real Givens on the realized leads replays
+        across the re and the im lanes independently.
+
+        Parameters
+        ----------
+        row_x, row_y : (..., e, 2) int64 packed words — pivot and target
+            row; the trailing axis holds the (re, im) lanes.
+
+        Returns
+        -------
+        (row_x', row_y') with the structural zeros forced:
+        ``row_y'[..., 0, :] == 0`` and ``row_x'[..., 0, 1] == 0`` (the
+        realized pivot is real).
+        """
+        xr, xi = row_x[..., 0], row_x[..., 1]
+        yr, yi = row_y[..., 0], row_y[..., 1]
+        magx, (fx, sx), skx = self.phase_vector(xr[..., 0], xi[..., 0])
+        magy, (fy, sy), sky = self.phase_vector(yr[..., 0], yi[..., 0])
+        pxr, pxi = self.phase_rotate(xr[..., 1:], xi[..., 1:],
+                                     (fx[..., None], sx[..., None]),
+                                     skx[..., None])
+        pyr, pyi = self.phase_rotate(yr[..., 1:], yi[..., 1:],
+                                     (fy[..., None], sy[..., None]),
+                                     sky[..., None])
+        r, _, (flip, sig) = self.vector(magx, magy)
+        st = (flip[..., None], sig[..., None])
+        oxr, oyr = self.rotate(pxr, pyr, st)
+        oxi, oyi = self.rotate(pxi, pyi, st)
+        zero = torch.zeros_like(r)[..., None]
+        out_x = torch.stack([torch.cat([r[..., None], oxr], dim=-1),
+                             torch.cat([zero, oxi], dim=-1)], dim=-1)
+        out_y = torch.stack([torch.cat([zero, oyr], dim=-1),
+                             torch.cat([zero, oyi], dim=-1)], dim=-1)
+        return out_x, out_y
 
     def annihilate(self, row_x, row_y, col):
         """Givens-rotate two packed rows so ``row_y[col]`` is zeroed.

@@ -13,12 +13,23 @@ to each other and to `repro.core.qrd`:
                       words are replayed over the trailing columns
                       (`repro_torch.kernels.ops.qr_packed_panel`)
 
-and two on the int32 block-FP fast path, bit-identical to each other:
+  `qr_cordic_wavefront` the Sameh–Kuck wavefront: every stage's disjoint
+                      row pairs at once, bit-identical to the others on the
+                      flattened stage schedule
+                      (`repro_torch.kernels.ops.qr_packed_wavefront`)
+
+three on the int32 block-FP fast path, bit-identical to each other:
 
   `qr_blockfp_pallas` quantize once, every step in one kernel, decode once
                       (`repro_torch.kernels.ops.givens_block_apply`)
   `qr_blockfp_panel`  its panel route
                       (`repro_torch.kernels.ops.givens_block_apply_panel`)
+  `qr_blockfp_wavefront` its wavefront
+                      (`repro_torch.kernels.ops.givens_block_apply_wavefront`)
+
+and three on the complex datapath (the three-rotation decomposition on
+(re, im) lane pairs), bit-identical to each other: `qr_cordic_complex` (the
+host loop), `qr_cordic_complex_pallas` and `qr_cordic_complex_wavefront`.
 
 The names ``*_pallas`` are kept so configurations carry over between the
 two packages; on the GPU they are the CUDA kernels of ``kernels/csrc``.
@@ -32,7 +43,9 @@ import torch
 from .givens import GivensUnit
 
 __all__ = ["qr_cordic", "qr_cordic_pallas", "qr_cordic_panel",
-           "qr_blockfp_pallas", "qr_blockfp_panel",
+           "qr_cordic_wavefront", "qr_blockfp_pallas", "qr_blockfp_panel",
+           "qr_blockfp_wavefront", "qr_cordic_complex",
+           "qr_cordic_complex_pallas", "qr_cordic_complex_wavefront",
            "givens_schedule", "sameh_kuck_schedule"]
 
 #: Bound on the host-side schedule memoization.
@@ -238,3 +251,183 @@ def qr_blockfp_panel(A, compute_q=True, iters=24, hub=True, frac=24,
                                        iters=iters, hub=hub, frac=frac,
                                        panel_n=panel_n, tile_b=tile_b)
     return _split_qr(out, m, n, compute_q)
+
+
+def _as_stages(m, n, stages):
+    """A stage schedule as a tuple of tuples (the Sameh–Kuck one by
+    default)."""
+    if stages is None:
+        return sameh_kuck_schedule(m, n)
+    return tuple(tuple(tuple(int(v) for v in s) for s in st) for st in stages)
+
+
+def qr_cordic_wavefront(A, unit: GivensUnit, compute_q=True, stages=None,
+                        tile_b=None, table_layout=None):
+    """Wavefront QRD over packed words: one kernel stage per Sameh–Kuck
+    stage.
+
+    All rotations of a stage touch disjoint row pairs and run at once, so
+    the sequential depth falls from ``len(steps)`` rotations to
+    ``len(stages)`` stages; (Q, R) are bit-identical to `qr_cordic` on the
+    flattened stage schedule.  On a CUDA tensor this launches
+    ``csrc/wavefront.cu``; on a CPU tensor it runs the kernel's plain
+    version.
+
+    Parameters
+    ----------
+    A : (..., m, n) tensor or array_like, converted to float64.
+    unit : GivensUnit — the configured rotator.
+    compute_q : bool — augment the rows with the identity to accumulate Qᵀ.
+    stages : sequence[sequence[(int, int, int)]], optional — defaults to
+        ``sameh_kuck_schedule(m, n)``; each stage's row pairs disjoint.
+    tile_b : int, optional — matrices per CUDA block.
+    table_layout : 'split' | 'stacked', optional — accepted for the JAX
+        package's signature.
+
+    Returns
+    -------
+    (Q, R) : float64 tensors (Q is None when ``compute_q=False``).
+    """
+    from repro_torch.kernels import ops
+
+    A = torch.as_tensor(A, dtype=torch.float64)
+    m, n = A.shape[-2], A.shape[-1]
+    P = unit.encode(_augment(A, compute_q))
+    out = unit.decode(ops.qr_packed_wavefront(
+        P, cfg=unit.cfg, stages=_as_stages(m, n, stages), tile_b=tile_b,
+        table_layout=table_layout))
+    return _split_qr(out, m, n, compute_q)
+
+
+def qr_blockfp_wavefront(A, compute_q=True, iters=24, hub=True, frac=24,
+                         stages=None, tile_b=None, table_layout=None):
+    """Wavefront QRD on the int32 block-FP datapath: quantize once, rotate
+    every stage's disjoint row pairs at once, decode once.  Bit-identical
+    to `qr_blockfp_pallas` on the flattened stage schedule.
+
+    Parameters as `qr_blockfp_pallas`, with ``stages`` (default
+    ``sameh_kuck_schedule(m, n)``) in place of ``steps``, and the accepted
+    ``table_layout`` of `qr_cordic_wavefront`.
+
+    Returns
+    -------
+    (Q, R) : float64 tensors (Q is None when ``compute_q=False``).
+    """
+    from repro_torch.kernels import ops
+
+    A = torch.as_tensor(A, dtype=torch.float64)
+    m, n = A.shape[-2], A.shape[-1]
+    out = ops.givens_block_apply_wavefront(
+        _augment(A, compute_q), _as_stages(m, n, stages), iters=iters,
+        hub=hub, frac=frac, tile_b=tile_b, table_layout=table_layout)
+    return _split_qr(out, m, n, compute_q)
+
+
+# --------------------------------------------------------------------------
+# Complex datapath: three-rotation Givens on (re, im) lane pairs.
+# --------------------------------------------------------------------------
+def _augment_complex(A, compute_q):
+    """Append the (real) identity columns to a complex working matrix."""
+    if not compute_q:
+        return A
+    m = A.shape[-2]
+    eye = torch.eye(m, dtype=A.dtype, device=A.device)
+    return torch.cat([A, eye.expand(A.shape[:-1] + (m,))], dim=-1)
+
+
+def _encode_complex(unit, C):
+    """complex (..., m, e) -> packed (..., m, e, 2) (re, im) words."""
+    return torch.stack([unit.encode(C.real), unit.encode(C.imag)], dim=-1)
+
+
+def _decode_complex(unit, P):
+    """packed (..., m, e, 2) -> complex128 (..., m, e)."""
+    out = unit.decode(P)
+    return torch.complex(out[..., 0], out[..., 1])
+
+
+def _split_qr_complex(C, m, n, compute_q):
+    """Split a decoded complex working matrix [R' | G] into (Q, R).
+
+    The rotations accumulate the unitary G with ``G A = R``, so ``Q =
+    G^H``: the conjugate transpose, where the real datapath transposes.
+    """
+    R = C[..., :n]
+    tri = torch.tril(torch.ones((m, n), dtype=torch.bool, device=C.device), -1)
+    R = torch.where(tri, torch.zeros((), dtype=R.dtype, device=C.device), R)
+    if not compute_q:
+        return None, R
+    Q = C[..., n:].transpose(-1, -2).conj().resolve_conj()
+    return Q, R
+
+
+def _complex_qr(A, unit, compute_q, run):
+    A = torch.as_tensor(A).to(torch.complex128)
+    m, n = A.shape[-2], A.shape[-1]
+    P = _encode_complex(unit, _augment_complex(A, compute_q))
+    return _split_qr_complex(_decode_complex(unit, run(P, m, n)), m, n,
+                             compute_q)
+
+
+def qr_cordic_complex(A, unit: GivensUnit, compute_q=True, steps=None):
+    """Complex QRD of a batch of matrices with the paper's unit (host loop).
+
+    Every schedule step runs the three-rotation decomposition
+    (`GivensUnit.rotate_rows_complex`): two phase rotations realize the
+    lead entries, then the real Givens replays across the re and im lanes.
+    R comes out with a real non-negative diagonal; purely real inputs give
+    `qr_cordic`'s words on the real lanes and exact zeros on the imaginary
+    ones.  Runs `repro_torch.kernels.qrd_blocked.qr_packed_complex_reference`,
+    the plain version of the complex kernel, on whatever device ``A`` lies.
+
+    Parameters
+    ----------
+    A : (..., m, n) tensor or array_like, converted to complex128.
+    unit : GivensUnit — the configured rotator (IEEE or HUB datapath).
+    compute_q : bool — augment the rows with the identity to accumulate the
+        unitary G; ``Q = G^H``.
+    steps : sequence[(int, int, int)], optional — defaults to column-major.
+
+    Returns
+    -------
+    (Q, R) : complex128 tensors (Q is None when ``compute_q=False``), R's
+    structural zeros forced and its diagonal exactly real.
+    """
+    from repro_torch.kernels.qrd_blocked import qr_packed_complex_reference
+
+    def run(P, m, n):
+        s = givens_schedule(m, n) if steps is None else tuple(steps)
+        e = P.shape[-2]
+        out = qr_packed_complex_reference(P.reshape((-1, m, e, 2)),
+                                          cfg=unit.cfg, steps=s)
+        return out.reshape(P.shape)
+    return _complex_qr(A, unit, compute_q, run)
+
+
+def qr_cordic_complex_pallas(A, unit: GivensUnit, compute_q=True, steps=None,
+                             tile_b=None):
+    """Kernel-resident complex QRD: every step in one kernel launch
+    (``csrc/complex_packed.cu`` on a CUDA tensor, its plain version on a
+    CPU tensor).  (Q, R) bit-identical to `qr_cordic_complex`; parameters
+    as there, plus ``tile_b`` (matrices per CUDA block)."""
+    from repro_torch.kernels import ops
+
+    def run(P, m, n):
+        s = givens_schedule(m, n) if steps is None else tuple(steps)
+        return ops.qr_packed_complex(P, cfg=unit.cfg, steps=s, tile_b=tile_b)
+    return _complex_qr(A, unit, compute_q, run)
+
+
+def qr_cordic_complex_wavefront(A, unit: GivensUnit, compute_q=True,
+                                stages=None, tile_b=None, table_layout=None):
+    """Wavefront complex QRD: every Sameh–Kuck stage's disjoint row pairs
+    run the three-rotation decomposition at once.  (Q, R) bit-identical to
+    `qr_cordic_complex` on the flattened stage schedule; parameters as
+    `qr_cordic_wavefront`."""
+    from repro_torch.kernels import ops
+
+    def run(P, m, n):
+        return ops.qr_packed_complex_wavefront(
+            P, cfg=unit.cfg, stages=_as_stages(m, n, stages), tile_b=tile_b,
+            table_layout=table_layout)
+    return _complex_qr(A, unit, compute_q, run)

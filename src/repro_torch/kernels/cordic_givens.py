@@ -17,7 +17,9 @@ These functions are the plain versions of the block-FP CUDA kernels
 * `fused_rotate_ctrl`  — one step of the panel factorization, exporting
   the control words (`panel_factor_blockfp_call`);
 * `fused_replay`       — the replay of exported control words over the
-  trailing columns (`panel_apply_blockfp_call`).
+  trailing columns (`panel_apply_blockfp_call`);
+* `fused_rotate_pairs` — one Sameh–Kuck stage of the wavefront kernel
+  (`qr_blockfp_wavefront_call`, ``csrc/wavefront.cu``).
 
 The arithmetic follows the operands' integer type: on int32 tensors it
 wraps as XLA's int32 does (two's complement), on int64 tensors the same
@@ -33,7 +35,7 @@ import torch
 from repro_torch.core.cordic import GAIN_TABLE
 
 __all__ = ["comp_q30", "fused_rotate_block", "fused_rotate_ctrl",
-           "fused_replay", "MAX_ITERS"]
+           "fused_replay", "fused_rotate_pairs", "MAX_ITERS"]
 
 #: Deepest CORDIC the int32 datapath takes: sigma packs one bit per
 #: micro-rotation into an int32, and the shift counts stay below 31.
@@ -141,11 +143,29 @@ def fused_rotate_ctrl(x, y, lead, *, iters: int, hub: bool, comp: int):
     return rx, ry, flip, sig
 
 
+def fused_rotate_pairs(x, y, lead, *, iters: int, hub: bool, comp: int):
+    """Fused Givens step on a whole pair axis of row blocks: one stage.
+
+    x, y : (TB, P, e) pivot and target rows of the stage's P pairs, at
+    uniform width e; lead : (P, e) 0/1 or bool one-hot of each pair's lead
+    column.  Vectoring on each pair's lead gives one control word per
+    (matrix, pair); it is replayed across the whole row, lanes left of the
+    lead included (the caller restores those) and the lead itself, where
+    the replay equals the vectoring result.  Returns the rotated
+    ``(x, y)``.
+    """
+    sel = lead[None].to(x.dtype)
+    xl = torch.sum(x * sel, dim=-1, dtype=x.dtype)   # (TB, P) lead pairs
+    yl = torch.sum(y * sel, dim=-1, dtype=y.dtype)
+    flip, sig = _vector(xl, yl, iters, hub)
+    return fused_replay(x, y, flip, sig, iters=iters, hub=hub, comp=comp)
+
+
 def fused_replay(x, y, flip, sig, *, iters: int, hub: bool, comp: int):
     """Replay exported ``(flip, sigma)`` control words over two row blocks.
 
-    x, y : (TB, L) rows; flip, sig : (TB,) control words (flip as 0/1 or
-    bool).  Replaying sigma on the pair that produced it reproduces the
+    x, y : (..., L) rows; flip, sig : (...,) control words (flip as 0/1
+    or bool), one per row pair.  Replaying sigma on the pair that produced it reproduces the
     vectoring output bit for bit, and on any other column applies the same
     micro-rotation sequence.
     """

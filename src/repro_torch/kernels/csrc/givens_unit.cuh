@@ -252,4 +252,30 @@ __device__ __forceinline__ void rotate_pair(i64& xp, i64& yp, const UnitParams& 
   yp = to_float(apply_gain(y, u), m_exp, u);
 }
 
+// formats.packed_is_zero: the word encodes +-0 (raw exponent field 0).
+__device__ __forceinline__ bool packed_is_zero(i64 packed, const UnitParams& u) {
+  return (((u64)packed >> u.man_bits) & ((1ULL << u.exp_bits) - 1ULL)) == 0;
+}
+
+// GivensUnit.phase_vector: vectoring on the (re, im) lane pair of a complex
+// lead entry.  Returns the realized entry |z| packed (the raw real word
+// where skip), the phase control word (flip, sig), and skip: the imaginary
+// word is +-0, so the phase rotation is the exact identity.
+__device__ __forceinline__ void phase_vector(i64 re, i64 im, const UnitParams& u,
+                                             i64& mag, i64& flip, i64& sig,
+                                             bool& skip) {
+  i64 x, y, m_exp;
+  to_fixed(re, im, u, x, y, m_exp);
+  vectoring(x, y, u, flip, sig);
+  skip = packed_is_zero(im, u);
+  mag = skip ? re : to_float(apply_gain(x, u), m_exp, u);
+}
+
+// GivensUnit.phase_rotate: the phase control word replayed on one (re, im)
+// pair in place; where skip the pair passes through untouched.
+__device__ __forceinline__ void phase_rotate(i64& re, i64& im, const UnitParams& u,
+                                             i64 flip, i64 sig, bool skip) {
+  if (!skip) rotate_pair(re, im, u, flip, sig);
+}
+
 }  // namespace gru

@@ -1,0 +1,180 @@
+// Sameh-Kuck wavefront QR on one resident tile per matrix: every pair of a
+// stage rotated at once, on packed FP words (bit-exact to the unit) and on
+// int32 block-FP significands.
+//
+// Replaces: src/repro/kernels/qrd_blocked.py,
+//   _qr_packed_wavefront_kernel / qr_packed_wavefront_call (B5a) and
+//   _qr_blockfp_wavefront_kernel / qr_blockfp_wavefront_call (B5b), the
+//   lax.scan over stages of _wavefront_scan; B5b's body is
+//   cordic_givens.fused_rotate_pairs.
+//
+// What it computes: for each stage of (S, P) pivot, target and column
+// tables (padded with pivot row m), every pair's rows rotated from its lead
+// column on: vectoring on the lead pair gives the control word (flip,
+// sigma), which is replayed on every element of both rows (on the lead it
+// gives the vectoring result), and the target lead is forced to 0.  Equal
+// to qr_packed_wavefront_reference / qr_blockfp_wavefront_reference, and so
+// to qr_packed / qr_blockfp on the flattened stage schedule: the pairs of a
+// stage touch disjoint rows, and each pair's words are those of its step.
+//
+// Bound on this card: integer operations, as for qr_packed.cu and
+// blockfp.cu: the same elements are rotated as on the step-serial kernels
+// at the same shape, so the bound is theirs.  What the wavefront changes is
+// the sequential depth: 61 stages at 32 x 32 against 496 steps.
+//
+// Design (simple first; speed is later work):
+//  * One block holds `tile_b` matrices (blockDim.y); the stage loop is
+//    wf::run_stages (stage_loop.cuh): one thread per pair computes the
+//    pair's control word into shared memory, then the block's threads
+//    spread over (pair, column) and replay it; two barriers a stage.
+//  * Packed: the m x e int64 tile lives in dynamic shared memory, or, when
+//    the block's tiles do not fit (128 x 256 with Q is 256 KiB), in place
+//    in device memory (`in` copied to `out` once, kShared = false), as in
+//    qr_packed.cu.  Block-FP: the int32 tile always fits (at most 128 KiB).
+#include <cuda_runtime.h>
+
+#include "blockfp_unit.cuh"
+#include "givens_unit.cuh"
+#include "qr_tile.cuh"
+#include "stage_loop.cuh"
+
+using gru::i64;
+using gru::UnitParams;
+using bfp::i32;
+
+// B5a's pair step: GivensUnit.vector on the lead pair, GivensUnit.rotate
+// of its control word on each element.  ctrl holds (flip, sig) per pair.
+struct PackedStage {
+  i64* T;
+  int ld;
+  const UnitParams* u;
+  i64* ctrl;
+  __device__ __forceinline__ void lead(int p, int k, int j, int c) const {
+    i64 x, y, m_exp;
+    gru::to_fixed(T[k * ld + c], T[j * ld + c], *u, x, y, m_exp);
+    gru::vectoring(x, y, *u, ctrl[2 * p], ctrl[2 * p + 1]);
+  }
+  __device__ __forceinline__ void element(int p, int k, int j, int c,
+                                          int idx) const {
+    i64& x = T[k * ld + idx];
+    i64& y = T[j * ld + idx];
+    gru::rotate_pair(x, y, *u, ctrl[2 * p], ctrl[2 * p + 1]);
+    if (idx == c) y = 0;  // structural zero (systolic array)
+  }
+};
+
+// B5b's pair step: fused_rotate_pairs on one pair.
+struct BlockfpStage {
+  i32* T;
+  int ld;
+  const bfp::Params* u;
+  i32* ctrl;
+  __device__ __forceinline__ void lead(int p, int k, int j, int c) const {
+    bfp::vector_lead(T[k * ld + c], T[j * ld + c], *u, ctrl[2 * p],
+                     ctrl[2 * p + 1]);
+  }
+  __device__ __forceinline__ void element(int p, int k, int j, int c,
+                                          int idx) const {
+    i32 x = T[k * ld + idx], y = T[j * ld + idx];
+    bfp::replay(x, y, *u, ctrl[2 * p], ctrl[2 * p + 1]);
+    T[k * ld + idx] = x;
+    T[j * ld + idx] = idx == c ? 0 : y;  // structural zero
+  }
+};
+
+template <bool kShared>
+__global__ void qr_packed_wavefront_kernel(const i64* __restrict__ in, i64* out,
+                                           wf::Tables t, int B, int m, int e,
+                                           UnitParams u) {
+  extern __shared__ i64 wf_smem64[];
+  const long long me = (long long)m * e;
+  const long long b = (long long)blockIdx.x * blockDim.y + threadIdx.y;
+  const bool live = b < B;  // the ragged edge of the last block
+  i64* tiles = wf_smem64;
+  i64* ctrl = wf_smem64 + (kShared ? (long long)blockDim.y * me : 0) +
+              (long long)threadIdx.y * t.P * 2;
+  i64* T = kShared ? tiles + threadIdx.y * me : out + (live ? b : 0) * me;
+  if (live) gru::copy_tile(T, e, in + b * me, e, m, e);
+  __syncthreads();
+  wf::run_stages(t, m, e, live, PackedStage{T, e, &u, ctrl});
+  if (kShared && live) gru::copy_tile(out + b * me, e, T, e, m, e);
+}
+
+__global__ void qr_blockfp_wavefront_kernel(const i32* __restrict__ in,
+                                            i32* out, wf::Tables t, int B,
+                                            int m, int e, bfp::Params u) {
+  extern __shared__ i32 wf_smem32[];
+  const long long me = (long long)m * e;
+  const long long b = (long long)blockIdx.x * blockDim.y + threadIdx.y;
+  const bool live = b < B;  // the ragged edge of the last block
+  i32* T = wf_smem32 + threadIdx.y * me;
+  i32* ctrl = wf_smem32 + (long long)blockDim.y * me +
+              (long long)threadIdx.y * t.P * 2;
+  if (live) bfp::copy_tile(T, e, in + b * me, e, m, e);
+  __syncthreads();
+  wf::run_stages(t, m, e, live, BlockfpStage{T, e, &u, ctrl});
+  if (live) bfp::copy_tile(out + b * me, e, T, e, m, e);
+}
+
+extern "C" {
+
+// Each launches on `stream` and returns the CUDA error of the launch (0 on
+// success).  `tables` is the (3, S, P) int32 stage table.  With
+// device_tile the packed working tiles live in `out` (device memory).
+int qr_packed_wavefront_launch(const void* in, void* out, const void* tables,
+                               int B, int m, int e, int S, int P, int tile_b,
+                               int threads_x, int device_tile, int man_bits,
+                               int exp_bits, long long bias,
+                               long long max_exp_raw, int N, int iters,
+                               int hub, int rne, int unbiased,
+                               int detect_identity, long long comp, int p,
+                               void* stream) {
+  const UnitParams u = {man_bits, exp_bits, bias, max_exp_raw, N, iters, hub,
+                        rne, unbiased, detect_identity, comp, p};
+  const wf::Tables t = {(const int*)tables, (long long)S * P, P, S, P};
+  const dim3 block(threads_x, tile_b);
+  const dim3 grid((B + tile_b - 1) / tile_b);
+  const size_t ctrl = (size_t)tile_b * P * 2 * sizeof(i64);
+  if (device_tile) {
+    cudaError_t err = cudaFuncSetAttribute(
+        qr_packed_wavefront_kernel<false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ctrl);
+    if (err != cudaSuccess) return (int)err;
+    qr_packed_wavefront_kernel<false><<<grid, block, ctrl,
+                                        (cudaStream_t)stream>>>(
+        (const i64*)in, (i64*)out, t, B, m, e, u);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = (size_t)tile_b * m * e * sizeof(i64) + ctrl;
+  cudaError_t err = cudaFuncSetAttribute(
+      qr_packed_wavefront_kernel<true>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  qr_packed_wavefront_kernel<true><<<grid, block, smem, (cudaStream_t)stream>>>(
+      (const i64*)in, (i64*)out, t, B, m, e, u);
+  return (int)cudaGetLastError();
+}
+
+int qr_blockfp_wavefront_launch(const void* in, void* out, const void* tables,
+                                int B, int m, int e, int S, int P, int tile_b,
+                                int threads_x, int iters, int hub, int comp,
+                                void* stream) {
+  const bfp::Params u = {iters, hub, comp};
+  const wf::Tables t = {(const int*)tables, (long long)S * P, P, S, P};
+  const dim3 block(threads_x, tile_b);
+  const dim3 grid((B + tile_b - 1) / tile_b);
+  const size_t smem = (size_t)tile_b * (m * e + P * 2) * sizeof(i32);
+  cudaError_t err = cudaFuncSetAttribute(
+      qr_blockfp_wavefront_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  qr_blockfp_wavefront_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+      (const i32*)in, (i32*)out, t, B, m, e, u);
+  return (int)cudaGetLastError();
+}
+
+const char* wavefront_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

@@ -6,14 +6,17 @@ batch shape and restore it.  Ragged batches need no padding here: the
 kernels mask the ragged edge of their last block.  Two datapaths:
 
 * packed FP words (int64), bit-exact to the unit: `qr_packed`,
-  `qr_packed_panel`;
+  `qr_packed_panel`, the Sameh–Kuck wavefront `qr_packed_wavefront`, and
+  the complex datapath on (..., m, e, 2) (re, im) words, `qr_packed_complex`
+  and `qr_packed_complex_wavefront`;
 * int32 block-FP significands, quantized once per (matrix, column) by
   `_blockfp_encode` and decoded once by `_blockfp_decode`:
-  `givens_block_apply` (any schedule, e.g. `rls_block_steps`) and
-  `givens_block_apply_panel`.
+  `givens_block_apply` (any schedule, e.g. `rls_block_steps`),
+  `givens_block_apply_panel` and `givens_block_apply_wavefront`.
 
-The dual-int32 ``lanes`` route of the JAX package is ROADMAP B8 and the
-wavefront wrappers are A8; neither is ported yet.
+The wavefront wrappers take the stage schedule as (S, Pmax) tables
+(`_stage_tables`).  The dual-int32 ``lanes`` route of the JAX package is
+ROADMAP B8 and not ported: the port has no ``lanes`` argument.
 """
 from __future__ import annotations
 
@@ -28,9 +31,10 @@ from repro_torch.core.qrd import SCHEDULE_CACHE_SIZE
 
 from . import qrd_blocked as qb
 
-__all__ = ["qr_packed", "panel_steps", "qr_packed_panel",
-           "givens_block_apply", "givens_block_apply_panel",
-           "rls_block_steps"]
+__all__ = ["qr_packed", "qr_packed_wavefront", "qr_packed_complex",
+           "qr_packed_complex_wavefront", "panel_steps", "qr_packed_panel",
+           "givens_block_apply", "givens_block_apply_wavefront",
+           "givens_block_apply_panel", "rls_block_steps"]
 
 
 @lru_cache(maxsize=SCHEDULE_CACHE_SIZE)
@@ -71,6 +75,118 @@ def qr_packed(P, *, cfg, steps, tile_b=None):
     Pf = P.to(torch.int64).reshape((-1, m, e)).contiguous()
     out = qb.qr_packed_call(Pf, cfg=cfg, steps=steps, tile_b=tile_b)
     return out.reshape(batch + (m, e))
+
+
+def _resolve_layout(table_layout):
+    return "split" if table_layout is None else table_layout
+
+
+@lru_cache(maxsize=SCHEDULE_CACHE_SIZE)
+def _stage_tables(stages, m):
+    """Stage tables of the wavefront kernels (memoized).
+
+    stages : tuple[tuple[(pivot, target, col), ...], ...]
+        One inner tuple per Sameh–Kuck stage (`sameh_kuck_schedule`).
+    m : int
+        Rows of the working tile; padded pairs carry the out-of-range row
+        ``m`` and column 0, and the kernels skip them.
+
+    Returns three read-only (S, Pmax) int32 numpy arrays: pivot rows,
+    target rows, lead columns, one row per stage.  A stage whose rotations
+    share a row, or name a row outside the tile, raises ValueError: the
+    pairs of a stage run at once.
+    """
+    S = len(stages)
+    Pmax = max(len(st) for st in stages)
+    piv = np.full((S, Pmax), m, np.int32)
+    tgt = np.full((S, Pmax), m, np.int32)
+    col = np.zeros((S, Pmax), np.int32)
+    for s, st in enumerate(stages):
+        rows = [r for (kk, jj, _) in st for r in (kk, jj)]
+        if len(rows) != len(set(rows)):
+            raise ValueError(f"stage {s} rotations touch overlapping rows")
+        if not all(0 <= r < m for r in rows):
+            raise ValueError(f"stage {s} row index out of range for m={m}")
+        for p, (kk, jj, cc) in enumerate(st):
+            piv[s, p], tgt[s, p], col[s, p] = kk, jj, cc
+    for t in (piv, tgt, col):
+        t.setflags(write=False)
+    return piv, tgt, col
+
+
+def qr_packed_wavefront(P, *, cfg, stages, tile_b=None, table_layout=None):
+    """Wavefront QR over packed FP words (bit-exact path).
+
+    The stage-parallel counterpart of `qr_packed`: all rotations of a
+    Sameh–Kuck stage run at once (their row pairs are disjoint), so the
+    sequential depth is the number of stages, not of rotations.
+
+    Parameters
+    ----------
+    P : (..., m, e) int64 tensor — packed words; any leading batch shape.
+    cfg : GivensConfig — unit configuration.
+    stages : tuple[tuple[(int, int, int), ...], ...] — the stage schedule
+        (`sameh_kuck_schedule(m, n)`); each stage's row pairs disjoint.
+    tile_b : int, optional — matrices per CUDA block.
+    table_layout : 'split' | 'stacked', optional — the JAX package's table
+        transfer layout; accepted, the words do not depend on it.
+
+    Returns
+    -------
+    (..., m, e) int64 — bit-identical to `qr_packed` on the flattened
+    stage schedule.
+    """
+    batch = P.shape[:-2]
+    m, e = P.shape[-2:]
+    piv, tgt, col = _stage_tables(stages, m)
+    Pf = P.to(torch.int64).reshape((-1, m, e)).contiguous()
+    out = qb.qr_packed_wavefront_call(Pf, piv, tgt, col, cfg=cfg,
+                                      tile_b=tile_b,
+                                      table_layout=_resolve_layout(table_layout))
+    return out.reshape(batch + (m, e))
+
+
+def qr_packed_complex(P, *, cfg, steps, tile_b=None):
+    """Complex QR over packed (re, im) words (bit-exact path).
+
+    Parameters
+    ----------
+    P : (..., m, e, 2) int64 tensor — packed words of the augmented complex
+        working matrices, the trailing axis the (re, im) lanes.
+    cfg : GivensConfig — unit configuration.
+    steps : tuple[(int, int, int), ...] — ``(pivot_row, target_row, col)``.
+    tile_b : int, optional — matrices per CUDA block.
+
+    Returns
+    -------
+    (..., m, e, 2) int64 — bit-identical to running
+    `GivensUnit.rotate_rows_complex` step by step (`qr_cordic_complex`).
+    """
+    batch = P.shape[:-3]
+    m, e = P.shape[-3:-1]
+    Pf = P.to(torch.int64).reshape((-1, m, e, 2)).contiguous()
+    out = qb.qr_packed_complex_call(Pf, cfg=cfg, steps=steps, tile_b=tile_b)
+    return out.reshape(batch + (m, e, 2))
+
+
+def qr_packed_complex_wavefront(P, *, cfg, stages, tile_b=None,
+                                table_layout=None):
+    """Wavefront complex QR over packed (re, im) words: the stage tables of
+    `qr_packed_wavefront` on the operand of `qr_packed_complex`.
+
+    Returns
+    -------
+    (..., m, e, 2) int64 — bit-identical to `qr_packed_complex` on the
+    flattened stage schedule.
+    """
+    batch = P.shape[:-3]
+    m, e = P.shape[-3:-1]
+    piv, tgt, col = _stage_tables(stages, m)
+    Pf = P.to(torch.int64).reshape((-1, m, e, 2)).contiguous()
+    out = qb.qr_packed_complex_wavefront_call(
+        Pf, piv, tgt, col, cfg=cfg, tile_b=tile_b,
+        table_layout=_resolve_layout(table_layout))
+    return out.reshape(batch + (m, e, 2))
 
 
 @lru_cache(maxsize=SCHEDULE_CACHE_SIZE)
@@ -258,6 +374,32 @@ def givens_block_apply(W, steps, *, iters=24, hub=True, frac=24,
     X, ex = _blockfp_encode(W.reshape((-1, m, e)), frac)
     out = qb.qr_blockfp_call(X.contiguous(), iters=iters, hub=hub,
                              steps=steps, tile_b=tile_b)
+    return _blockfp_decode(out, ex, frac).reshape(batch + (m, e))
+
+
+def givens_block_apply_wavefront(W, stages, *, iters=24, hub=True, frac=24,
+                                 tile_b=None, table_layout=None):
+    """The wavefront variant of `givens_block_apply`: quantize once, rotate
+    every stage's disjoint row pairs at once in one launch of
+    `qrd_blocked.qr_blockfp_wavefront_call`, decode once.
+
+    Parameters as `givens_block_apply`, with ``stages`` (the stage
+    schedule, each stage's row pairs disjoint) in place of ``steps`` and the
+    accepted ``table_layout`` of `qr_packed_wavefront`.
+
+    Returns
+    -------
+    (..., m, e) float64 — bit-identical to `givens_block_apply` on the
+    flattened stage schedule.
+    """
+    W = torch.as_tensor(W, dtype=torch.float64)
+    batch = W.shape[:-2]
+    m, e = W.shape[-2:]
+    piv, tgt, col = _stage_tables(stages, m)
+    X, ex = _blockfp_encode(W.reshape((-1, m, e)), frac)
+    out = qb.qr_blockfp_wavefront_call(
+        X.contiguous(), piv, tgt, col, iters=iters, hub=hub, tile_b=tile_b,
+        table_layout=_resolve_layout(table_layout))
     return _blockfp_decode(out, ex, frac).reshape(batch + (m, e))
 
 

@@ -22,6 +22,21 @@ wrappers, launch counters and plain PyTorch versions.
   `panel_factor_blockfp_reference` and `panel_apply_blockfp_reference`,
   loops of `repro_torch.kernels.cordic_givens.fused_rotate_block`,
   `fused_rotate_ctrl` and `fused_replay`.
+* `qr_packed_wavefront_call` and `qr_blockfp_wavefront_call`
+  (``csrc/wavefront.cu``) replace their namesakes of the JAX package: the
+  Sameh–Kuck wavefront, every pair of a stage rotated at once (their row
+  pairs are disjoint), on packed words and on int32 block-FP significands.
+  The schedule travels as (S, Pmax) stage tables padded with row ``m``
+  (`repro_torch.kernels.ops._stage_tables`).  Bit-identical to
+  `qr_packed_wavefront_reference` and `qr_blockfp_wavefront_reference`,
+  which equal the flat kernels on the flattened stage schedule.
+* `qr_packed_complex_call` and `qr_packed_complex_wavefront_call`
+  (``csrc/complex_packed.cu``) replace their namesakes of the JAX package:
+  the three-rotation complex Givens QR on (B, m, e, 2) packed (re, im)
+  words, step by step and stage by stage.  Bit-identical to
+  `qr_packed_complex_reference`, the loop of
+  `GivensUnit.rotate_rows_complex`, and to
+  `qr_packed_complex_wavefront_reference`.
 
 Each wrapper dispatches on the operand's device: a CUDA tensor launches the
 kernel (or raises), a CPU tensor runs the plain version.
@@ -31,6 +46,7 @@ from __future__ import annotations
 import ctypes
 from functools import lru_cache
 
+import numpy as np
 import torch
 
 from repro_torch.core import cordic
@@ -48,15 +64,22 @@ __all__ = ["qr_packed_call", "qr_packed_reference", "QR_PACKED_LAUNCHES",
            "panel_factor_blockfp_call", "panel_factor_blockfp_reference",
            "PANEL_FACTOR_BLOCKFP_LAUNCHES", "panel_apply_blockfp_call",
            "panel_apply_blockfp_reference", "PANEL_APPLY_BLOCKFP_LAUNCHES",
+           "qr_packed_wavefront_call", "qr_packed_wavefront_reference",
+           "QR_PACKED_WAVEFRONT_LAUNCHES", "qr_blockfp_wavefront_call",
+           "qr_blockfp_wavefront_reference", "QR_BLOCKFP_WAVEFRONT_LAUNCHES",
+           "qr_packed_complex_call", "qr_packed_complex_reference",
+           "QR_PACKED_COMPLEX_LAUNCHES", "qr_packed_complex_wavefront_call",
+           "qr_packed_complex_wavefront_reference",
+           "QR_PACKED_COMPLEX_WAVEFRONT_LAUNCHES", "TABLE_LAYOUTS",
            "TILE_B", "MAX_SHARED_BYTES", "kernel_params"]
 
 #: Matrices per CUDA block when the caller gives no ``tile_b``.
 TILE_B = 1
 
-#: Dynamic shared memory one block may use on Hopper (227 KB).  The flat
-#: packed kernel factorizes a block's tiles beyond it in place in device
-#: memory; the panel factorizations and the flat block-FP kernel keep their
-#: tiles within it.
+#: Dynamic shared memory one block may use on Hopper (227 KB).  The packed
+#: flat, wavefront and complex kernels factorize a block's tiles beyond it
+#: in place in device memory; the panel factorizations and the block-FP
+#: kernels keep their tiles within it.
 MAX_SHARED_BYTES = 232448
 
 #: Launches of each CUDA kernel in this process (comparisons included);
@@ -67,6 +90,16 @@ PANEL_APPLY_LAUNCHES = 0
 QR_BLOCKFP_LAUNCHES = 0
 PANEL_FACTOR_BLOCKFP_LAUNCHES = 0
 PANEL_APPLY_BLOCKFP_LAUNCHES = 0
+QR_PACKED_WAVEFRONT_LAUNCHES = 0
+QR_BLOCKFP_WAVEFRONT_LAUNCHES = 0
+QR_PACKED_COMPLEX_LAUNCHES = 0
+QR_PACKED_COMPLEX_WAVEFRONT_LAUNCHES = 0
+
+#: How the JAX package's wavefront kernels take their stage tables (three
+#: operands or one stacked operand).  Both are accepted; on the GPU the
+#: three tables always travel as one (3, S, Pmax) tensor, so the layout
+#: does not change the words.
+TABLE_LAYOUTS = ("split", "stacked")
 
 
 def qr_packed_reference(P, *, cfg: GivensConfig, steps):
@@ -177,6 +210,13 @@ _SIGNATURES = {
     "panel_apply_blockfp_launch": ([_C_PTR, _C_LL, _C_LL] + [_C_INT] * 2
                                    + [_C_PTR] * 2 + [_C_INT] + [_C_PTR] * 2
                                    + [_C_INT] * 4 + [_C_PTR]),
+    # (in, out, tables, B, m, e, S, P, tile_b, threads_x[, device_tile])
+    "qr_packed_wavefront_launch": [_C_PTR] * 3 + [_C_INT] * 8 + _UNIT_ARGTYPES,
+    "qr_blockfp_wavefront_launch": [_C_PTR] * 3 + [_C_INT] * 10 + [_C_PTR],
+    # (in, out, steps, B, m, e, S, tile_b, threads_x, device_tile)
+    "qr_packed_complex_launch": [_C_PTR] * 3 + [_C_INT] * 7 + _UNIT_ARGTYPES,
+    "qr_packed_complex_wavefront_launch": ([_C_PTR] * 3 + [_C_INT] * 8
+                                           + _UNIT_ARGTYPES),
 }
 
 
@@ -227,6 +267,16 @@ def _threads_x(e: int) -> int:
     return e if e <= 32 else min(-(-e // 32) * 32, 256)
 
 
+def _block_shape(fn: str, tile_b, threads_x: int) -> int:
+    """Tiles per block (default `TILE_B`); a block of more than 1024
+    threads raises ValueError."""
+    tile_b = TILE_B if tile_b is None else int(tile_b)
+    if tile_b < 1 or threads_x * tile_b > 1024:
+        raise ValueError(f"{fn}: tile_b={tile_b} gives a block of "
+                         f"{threads_x} x {tile_b} threads (at most 1024)")
+    return tile_b
+
+
 def _shared_tile_b(tile_b, fn: str, threads_x: int, tile_bytes: int,
                    default: int) -> int:
     """Tiles per block of a kernel that keeps them in shared memory:
@@ -235,10 +285,7 @@ def _shared_tile_b(tile_b, fn: str, threads_x: int, tile_bytes: int,
     do not fit, raises ValueError."""
     if tile_b is None:
         tile_b = max(1, min(default, MAX_SHARED_BYTES // tile_bytes))
-    tile_b = int(tile_b)
-    if tile_b < 1 or threads_x * tile_b > 1024:
-        raise ValueError(f"{fn}: tile_b={tile_b} gives a block of "
-                         f"{threads_x} x {tile_b} threads (at most 1024)")
+    tile_b = _block_shape(fn, tile_b, threads_x)
     if tile_b * tile_bytes > MAX_SHARED_BYTES:
         raise ValueError(f"{fn}: tile_b={tile_b} tiles of {tile_bytes} B need "
                          f"{tile_b * tile_bytes} B of shared memory (at most "
@@ -310,12 +357,9 @@ def qr_packed_call(P, *, cfg: GivensConfig, steps, tile_b: int | None = None):
         return qr_packed_reference(P, cfg=cfg, steps=steps)
     if not P.is_contiguous():
         raise ValueError("qr_packed_call: expected a contiguous tensor")
-    tile_b = TILE_B if tile_b is None else int(tile_b)
     B, m, e = P.shape
     threads_x = _threads_x(e)
-    if tile_b < 1 or threads_x * tile_b > 1024:
-        raise ValueError(f"tile_b={tile_b} gives a block of {threads_x} x "
-                         f"{tile_b} threads (at most 1024)")
+    tile_b = _block_shape("qr_packed_call", tile_b, threads_x)
     device_tile = tile_b * m * e * 8 > MAX_SHARED_BYTES
     out = torch.empty_like(P)
     if B == 0:
@@ -637,3 +681,347 @@ def panel_apply_blockfp_call(T, piv, tgt, flip, sig, *, iters: int,
     _check_launch("blockfp", err)
     PANEL_APPLY_BLOCKFP_LAUNCHES += 1
     return T
+
+
+# ---------------------------------------------------------------------------
+# The Sameh–Kuck wavefront (csrc/wavefront.cu) and the complex datapath
+# (csrc/complex_packed.cu)
+# ---------------------------------------------------------------------------
+def _stage_key(piv, tgt, col):
+    """Three (S, Pmax) stage tables (numpy arrays, tensors or nested
+    sequences) as one hashable key: their shapes and int32 bytes."""
+    arrs = [np.ascontiguousarray(t.cpu() if isinstance(t, torch.Tensor) else t,
+                                 dtype=np.int32) for t in (piv, tgt, col)]
+    return tuple((a.shape, a.tobytes()) for a in arrs)
+
+
+@lru_cache(maxsize=SCHEDULE_CACHE_SIZE)
+def _stage_table(key, m: int, e: int, device: str):
+    """Validated (3, S, Pmax) int32 copy on ``device`` of the stage tables
+    behind `_stage_key`.
+
+    A pair is padding when its pivot is ``m`` (the kernels skip it); every
+    other pair must name two rows below ``m`` and a column below ``e``, and
+    the rows of a stage must be disjoint: the pairs of a stage run at once,
+    so overlapping rows would race.
+    """
+    piv, tgt, col = (np.frombuffer(raw, np.int32).reshape(shape)
+                     for shape, raw in key)
+    if not (piv.ndim == 2 and piv.shape == tgt.shape == col.shape):
+        raise ValueError(f"stage tables must be three (S, Pmax) tables of one "
+                         f"shape, got {[k[0] for k in key]}")
+    for s, (ks, js, cs) in enumerate(zip(piv.tolist(), tgt.tolist(),
+                                         col.tolist())):
+        rows = []
+        for k, j, c in zip(ks, js, cs):
+            if k == m and j == m:
+                continue                          # padded pair
+            if not (0 <= k < m and 0 <= j < m and k != j and 0 <= c < e):
+                raise ValueError(f"stage {s} pair {(k, j, c)} is out of range "
+                                 f"for a {m} x {e} working tile")
+            rows += [k, j]
+        if len(rows) != len(set(rows)):
+            raise ValueError(f"stage {s} rotations touch overlapping rows")
+    return torch.tensor(np.stack([piv, tgt, col]), device=device)
+
+
+def _check_layout(table_layout: str):
+    if table_layout not in TABLE_LAYOUTS:
+        raise ValueError(f"table_layout must be one of {TABLE_LAYOUTS}, "
+                         f"got {table_layout!r}")
+
+
+def _stage_threads(pairs: int, e: int) -> int:
+    """Threads of a row of the stage loop `wf::run_stages`: one per
+    (pair, column) of the widest stage in whole warps, at most 256."""
+    return min(max(-(-pairs * e // 32) * 32, 32), 256)
+
+
+def _wavefront_scan(P, piv, tgt, col, stage_fn, lanes=False):
+    """Plain-PyTorch stage loop of the wavefront kernels.
+
+    For each stage: gather the pivot and target rows of all Pmax pairs
+    into (B, Pmax, e[, 2]) tensors, rotate them with ``stage_fn(X, Y,
+    lead)`` at uniform width (``lead`` the (Pmax, e) one-hot of each pair's
+    lead column), restore the lanes left of the lead, force the structural
+    zeros (the target lead; with ``lanes``, the complex operand's (re, im)
+    axis, also the pivot lead's imaginary lane) and scatter the rows back.
+    Padded pairs name row ``m``: a zero sentinel row appended to the tile,
+    which they read as zeros and whose writes are discarded.
+    """
+    B, m, e = P.shape[:3]
+    Pz = torch.cat([P, P.new_zeros((B, 1) + P.shape[2:])], dim=1)
+    tabs = [torch.tensor(np.asarray(t), dtype=torch.int64,
+                            device=P.device) for t in (piv, tgt, col)]
+    colid = torch.arange(e, device=P.device)
+    im = torch.arange(2, device=P.device) == 1
+    for pv, tg, cl in zip(*tabs):
+        X, Y = Pz[:, pv], Pz[:, tg]
+        lead = colid[None] == cl[:, None]               # (Pmax, e)
+        active = colid[None] >= cl[:, None]
+        rx, ry = stage_fn(X, Y, lead)
+        lm, am = (lead[..., None], active[..., None]) if lanes else (lead, active)
+        rx = torch.where(am, rx, X)                    # untouched left lanes
+        ry = torch.where(am, ry, Y)
+        if lanes:
+            rx = torch.where(lm & im, 0, rx)           # realized pivot is real
+        ry = torch.where(lm, 0, ry)                    # structural zero
+        Pz[:, pv] = rx
+        Pz[:, tg] = ry
+        Pz[:, m] = 0                                   # the sentinel stays 0
+    return Pz[:, :m].contiguous()
+
+
+def _lead_words(X, lead):
+    """The lead word of each pair: (B, Pmax, e) rows, (Pmax, e) one-hot."""
+    return torch.sum(X * lead.to(X.dtype), dim=-1, dtype=X.dtype)
+
+
+def qr_packed_wavefront_reference(P, piv, tgt, col, *, cfg: GivensConfig):
+    """Plain PyTorch version of the packed wavefront kernel, on any device.
+
+    P : (B, m, e) int64 packed words; piv, tgt, col : (S, Pmax) stage
+    tables.  Each stage: `GivensUnit.vector` on every pair's lead, its
+    control word replayed with `GivensUnit.rotate` across both rows.
+    Equal to `qr_packed_reference` on the flattened stage schedule.
+    """
+    unit = GivensUnit(cfg)
+
+    def stage(X, Y, lead):
+        _, _, (flip, sig) = unit.vector(_lead_words(X, lead),
+                                        _lead_words(Y, lead))
+        return unit.rotate(X, Y, (flip[..., None], sig[..., None]))
+    return _wavefront_scan(P, piv, tgt, col, stage)
+
+
+def qr_blockfp_wavefront_reference(X, piv, tgt, col, *, iters: int,
+                                   hub: bool):
+    """Plain PyTorch version of the block-FP wavefront kernel, on any
+    device: each stage through `cordic_givens.fused_rotate_pairs`.  Equal to
+    `qr_blockfp_reference` on the flattened stage schedule."""
+    comp = cg.comp_q30(iters)
+
+    def stage(x, y, lead):
+        return cg.fused_rotate_pairs(x, y, lead, iters=iters, hub=hub,
+                                     comp=comp)
+    return _wavefront_scan(X, piv, tgt, col, stage)
+
+
+def qr_packed_complex_reference(P, *, cfg: GivensConfig, steps):
+    """Plain PyTorch version of the complex kernel, on any device.
+
+    P : (B, m, e, 2) int64 packed (re, im) words.  For each ``(k, j, col)``
+    step, rows k and j from ``col`` go through
+    `GivensUnit.rotate_rows_complex` (structural zeros included).
+    """
+    unit = GivensUnit(cfg)
+    P = P.clone()
+    for (k, j, col) in steps:
+        rx, ry = unit.rotate_rows_complex(P[:, k, col:], P[:, j, col:])
+        P[:, k, col:] = rx
+        P[:, j, col:] = ry
+    return P
+
+
+def qr_packed_complex_wavefront_reference(P, piv, tgt, col, *,
+                                          cfg: GivensConfig):
+    """Plain PyTorch version of the complex wavefront kernel, on any device.
+
+    Each stage: phase vectoring on every pair's lead (re, im) words, the
+    phase words replayed across both rows, the realized leads read back
+    from the phase-rotated real lanes, and the real Givens on them replayed
+    across the re and the im lanes.  Equal to `qr_packed_complex_reference`
+    on the flattened stage schedule.
+    """
+    unit = GivensUnit(cfg)
+
+    def stage(X, Y, lead):
+        xr, xi, yr, yi = X[..., 0], X[..., 1], Y[..., 0], Y[..., 1]
+        _, (fx, sx), skx = unit.phase_vector(_lead_words(xr, lead),
+                                             _lead_words(xi, lead))
+        _, (fy, sy), sky = unit.phase_vector(_lead_words(yr, lead),
+                                             _lead_words(yi, lead))
+        pxr, pxi = unit.phase_rotate(xr, xi, (fx[..., None], sx[..., None]),
+                                     skx[..., None])
+        pyr, pyi = unit.phase_rotate(yr, yi, (fy[..., None], sy[..., None]),
+                                     sky[..., None])
+        _, _, (flip, sig) = unit.vector(_lead_words(pxr, lead),
+                                        _lead_words(pyr, lead))
+        st = (flip[..., None], sig[..., None])
+        rxr, ryr = unit.rotate(pxr, pyr, st)
+        rxi, ryi = unit.rotate(pxi, pyi, st)
+        return torch.stack([rxr, rxi], -1), torch.stack([ryr, ryi], -1)
+    return _wavefront_scan(P, piv, tgt, col, stage, lanes=True)
+
+
+def _packed_launch(fn: str, lib: str, P, table, sizes, pairs: int,
+                   threads_x: int, ctrl_words: int, tile_b, cfg):
+    """Launch the stage-loop kernel behind ``fn`` on P's (B, m, e[, 2])
+    packed tiles; ``sizes`` are the launch's table sizes after (B, m, e).
+    The tiles live in shared memory when a block's tiles and per-pair
+    control words (``ctrl_words`` int64 per pair) fit `MAX_SHARED_BYTES`,
+    else in place in the output's device memory.  Returns the output."""
+    if not P.is_contiguous():
+        raise ValueError(f"{fn}: expected a contiguous tensor")
+    B, m, e = P.shape[:3]
+    tile_b = _block_shape(fn, tile_b, threads_x)
+    tile_bytes = P[0].numel() * 8 if B else 0
+    device_tile = (tile_b * (tile_bytes + pairs * ctrl_words * 8)
+                   > MAX_SHARED_BYTES)
+    out = torch.empty_like(P)
+    if B == 0:
+        return out
+    launch = getattr(_lib(lib), fn.removesuffix("_call") + "_launch")
+    err = launch(P.data_ptr(), out.data_ptr(), table.data_ptr(), B, m, e,
+                 *sizes, tile_b, threads_x, int(device_tile),
+                 *_unit_args(cfg), _stream(P))
+    _check_launch(lib, err)
+    return out
+
+
+def qr_packed_wavefront_call(P, piv, tgt, col, *, cfg: GivensConfig,
+                             tile_b: int | None = None,
+                             table_layout: str = "split"):
+    """Wavefront QR over packed FP words: one CUDA launch per call.
+
+    Parameters
+    ----------
+    P : (B, m, e) int64, contiguous
+        Packed FP words of the augmented working matrices.  On a CPU tensor
+        the plain version runs instead of the kernel.
+    piv, tgt, col : (S, Pmax) int
+        Stage tables, one row per Sameh–Kuck stage, padded with ``piv =
+        tgt = m`` (`repro_torch.kernels.ops._stage_tables`).
+    cfg : GivensConfig — unit configuration.
+    tile_b : int, optional — matrices per CUDA block (default `TILE_B`).
+    table_layout : 'split' | 'stacked' — accepted for the JAX package's
+        signature; the words do not depend on it.
+
+    Returns
+    -------
+    (B, m, e) int64 — the triangularized words, bit-identical to
+    `qr_packed_call` on the flattened stage schedule.  A block's tiles
+    beyond `MAX_SHARED_BYTES` are factorized in place in device memory.
+    """
+    global QR_PACKED_WAVEFRONT_LAUNCHES
+    _check_layout(table_layout)
+    if _check_operand("qr_packed_wavefront_call", P):
+        return qr_packed_wavefront_reference(P, piv, tgt, col, cfg=cfg)
+    B, m, e = P.shape
+    table = _stage_table(_stage_key(piv, tgt, col), m, e, str(P.device))
+    S, pairs = table.shape[1:]
+    out = _packed_launch("qr_packed_wavefront_call", "wavefront", P, table,
+                         (S, pairs), pairs, _stage_threads(pairs, e), 2,
+                         tile_b, cfg)
+    QR_PACKED_WAVEFRONT_LAUNCHES += int(B > 0)
+    return out
+
+
+def qr_blockfp_wavefront_call(X, piv, tgt, col, *, iters: int, hub: bool,
+                              tile_b: int | None = None,
+                              table_layout: str = "split"):
+    """Wavefront QR over int32 block-FP significands: one CUDA launch.
+
+    Parameters as `qr_blockfp_call`, with the step schedule replaced by the
+    (S, Pmax) stage tables of `qr_packed_wavefront_call`.  The tiles stay
+    in shared memory (the largest, 128 x 256 int32, is 128 KiB); an
+    explicit ``tile_b`` whose tiles do not fit raises ValueError.
+
+    Returns
+    -------
+    (B, m, e) int32 — bit-identical to `qr_blockfp_call` on the flattened
+    stage schedule.
+    """
+    global QR_BLOCKFP_WAVEFRONT_LAUNCHES
+    _check_layout(table_layout)
+    args = _blockfp_args(iters, hub)
+    if _check_operand("qr_blockfp_wavefront_call", X, dtype=torch.int32):
+        return qr_blockfp_wavefront_reference(X, piv, tgt, col, iters=iters,
+                                              hub=hub)
+    if not X.is_contiguous():
+        raise ValueError("qr_blockfp_wavefront_call: expected a contiguous "
+                         "tensor")
+    B, m, e = X.shape
+    table = _stage_table(_stage_key(piv, tgt, col), m, e, str(X.device))
+    S, pairs = table.shape[1:]
+    threads_x = _stage_threads(pairs, e)
+    tile_b = _shared_tile_b(tile_b, "qr_blockfp_wavefront_call", threads_x,
+                            m * e * 4 + pairs * 8, TILE_B)
+    out = torch.empty_like(X)
+    if B == 0:
+        return out
+    err = _lib("wavefront").qr_blockfp_wavefront_launch(
+        X.data_ptr(), out.data_ptr(), table.data_ptr(), B, m, e, S, pairs,
+        tile_b, threads_x, *args, _stream(X))
+    _check_launch("wavefront", err)
+    QR_BLOCKFP_WAVEFRONT_LAUNCHES += 1
+    return out
+
+
+def _check_complex(fn: str, P) -> bool:
+    """`_check_operand` for (B, m, e, 2) (re, im) words, whose shape is
+    checked on any device."""
+    if P.dim() != 4 or P.shape[-1] != 2:
+        raise ValueError(f"{fn}: expected (B, m, e, 2) (re, im) words, got "
+                         f"{tuple(P.shape)}")
+    return _check_operand(fn, P, ndim=4)
+
+
+def qr_packed_complex_call(P, *, cfg: GivensConfig, steps,
+                           tile_b: int | None = None):
+    """Complex QR over packed (re, im) words: one CUDA launch per call.
+
+    Parameters
+    ----------
+    P : (B, m, e, 2) int64, contiguous
+        Packed words of the augmented complex working matrices, the
+        trailing axis the (re, im) lanes.  On a CPU tensor the plain
+        version runs instead of the kernel.
+    cfg : GivensConfig — unit configuration.
+    steps : tuple[(int, int, int), ...] — ``(pivot_row, target_row, col)``.
+    tile_b : int, optional — matrices per CUDA block (default `TILE_B`).
+
+    Returns
+    -------
+    (B, m, e, 2) int64 — bit-identical to `qr_packed_complex_reference`.
+    A block's tiles beyond `MAX_SHARED_BYTES` are factorized in place in
+    device memory.
+    """
+    global QR_PACKED_COMPLEX_LAUNCHES
+    steps = tuple(tuple(int(v) for v in s) for s in steps)
+    if _check_complex("qr_packed_complex_call", P):
+        return qr_packed_complex_reference(P, cfg=cfg, steps=steps)
+    B, m, e, _ = P.shape
+    table = _step_table(steps, m, e, str(P.device))
+    out = _packed_launch("qr_packed_complex_call", "complex_packed", P, table,
+                         (len(steps),), 1, _threads_x(e), 8, tile_b, cfg)
+    QR_PACKED_COMPLEX_LAUNCHES += int(B > 0)
+    return out
+
+
+def qr_packed_complex_wavefront_call(P, piv, tgt, col, *, cfg: GivensConfig,
+                                     tile_b: int | None = None,
+                                     table_layout: str = "split"):
+    """Complex wavefront QR over packed (re, im) words: one CUDA launch.
+
+    Parameters as `qr_packed_wavefront_call` with the (B, m, e, 2) operand
+    of `qr_packed_complex_call`.
+
+    Returns
+    -------
+    (B, m, e, 2) int64 — bit-identical to `qr_packed_complex_call` on the
+    flattened stage schedule.
+    """
+    global QR_PACKED_COMPLEX_WAVEFRONT_LAUNCHES
+    _check_layout(table_layout)
+    if _check_complex("qr_packed_complex_wavefront_call", P):
+        return qr_packed_complex_wavefront_reference(P, piv, tgt, col,
+                                                     cfg=cfg)
+    B, m, e, _ = P.shape
+    table = _stage_table(_stage_key(piv, tgt, col), m, e, str(P.device))
+    S, pairs = table.shape[1:]
+    out = _packed_launch("qr_packed_complex_wavefront_call", "complex_packed",
+                         P, table, (S, pairs), pairs,
+                         _stage_threads(pairs, e), 8, tile_b, cfg)
+    QR_PACKED_COMPLEX_WAVEFRONT_LAUNCHES += int(B > 0)
+    return out

@@ -1,11 +1,17 @@
 """Built-in backend registrations (torch port of `repro.qrd.backends`).
 
 Three of the JAX package's six built-ins are ported, with the same
-capability records:
+capability records and routing:
 
-  'cordic'          the paper's unit, host loop (the kernel's plain version)
-  'cordic_pallas'   the same unit in the CUDA kernel, bit-identical to it
-  'blockfp_pallas'  the int32 block-FP fast path on its CUDA kernel
+  'cordic'          the paper's unit, host loop (the kernels' plain
+                    versions); ``schedule='sameh_kuck'`` takes the flattened
+                    stage order, complex operands the three-rotation loop
+  'cordic_pallas'   the same unit in the CUDA kernels, bit-identical to it:
+                    the flat kernel, or with ``schedule='sameh_kuck'`` the
+                    wavefront kernel; complex operands on the complex flat
+                    or wavefront kernel
+  'blockfp_pallas'  the int32 block-FP fast path on its flat or wavefront
+                    CUDA kernel (real dtypes only)
 
 'jnp', 'givens_float' and 'fixed' are ROADMAP A2 and not registered yet:
 asking for one raises the registry's unknown-backend error.  Importing this module (``repro_torch.qrd`` does) populates the
@@ -29,41 +35,45 @@ def _flat_steps(config, m, n):
     return None
 
 
-def _no_complex(config):
-    if config.is_complex():
-        raise NotImplementedError(
-            "the complex datapath is not ported yet (ROADMAP A9, kernel B7)")
-
-
 def _build_cordic(config, m, n, compute_q):
-    _no_complex(config)
     unit = GivensUnit(config.givens)
     steps = _flat_steps(config, m, n)
+    if config.is_complex():               # the three-rotation datapath
+        return lambda A: _q.qr_cordic_complex(A, unit, compute_q=compute_q,
+                                              steps=steps)
     return lambda A: _q.qr_cordic(A, unit, compute_q=compute_q, steps=steps)
 
 
 def _build_cordic_pallas(config, m, n, compute_q):
-    _no_complex(config)
-    if config.schedule == "sameh_kuck":
-        raise NotImplementedError(
-            "schedule='sameh_kuck' routes onto the wavefront kernel, which is "
-            "not ported yet (ROADMAP A8, kernel B5)")
     unit = GivensUnit(config.givens)
+    tile_b, layout = config.tile_b, config.table_layout
+    if config.schedule == "sameh_kuck":   # the wavefront kernels
+        stages = _q.sameh_kuck_schedule(m, n)
+        if config.is_complex():
+            return lambda A: _q.qr_cordic_complex_wavefront(
+                A, unit, compute_q=compute_q, stages=stages, tile_b=tile_b,
+                table_layout=layout)
+        return lambda A: _q.qr_cordic_wavefront(
+            A, unit, compute_q=compute_q, stages=stages, tile_b=tile_b,
+            table_layout=layout)
+    if config.is_complex():
+        return lambda A: _q.qr_cordic_complex_pallas(
+            A, unit, compute_q=compute_q, tile_b=tile_b)
     return lambda A: _q.qr_cordic_pallas(A, unit, compute_q=compute_q,
-                                         tile_b=config.tile_b)
+                                         tile_b=tile_b)
 
 
 def _build_blockfp_pallas(config, m, n, compute_q):
-    _no_complex(config)
-    if config.schedule == "sameh_kuck":
-        raise NotImplementedError(
-            "schedule='sameh_kuck' routes onto the block-FP wavefront kernel, "
-            "which is not ported yet (ROADMAP A8, kernel B5)")
     iters, hub, frac = (config.blockfp_iters(), config.blockfp_hub(),
                         config.frac)
+    tile_b, layout = config.tile_b, config.table_layout
+    if config.schedule == "sameh_kuck":
+        stages = _q.sameh_kuck_schedule(m, n)
+        return lambda A: _q.qr_blockfp_wavefront(
+            A, compute_q=compute_q, iters=iters, hub=hub, frac=frac,
+            stages=stages, tile_b=tile_b, table_layout=layout)
     return lambda A: _q.qr_blockfp_pallas(A, compute_q=compute_q, iters=iters,
-                                          hub=hub, frac=frac,
-                                          tile_b=config.tile_b)
+                                          hub=hub, frac=frac, tile_b=tile_b)
 
 
 def register_builtin_backends(overwrite=False):

@@ -4,8 +4,8 @@ The fields, their defaults and the JSON form are those of the JAX package,
 so ``QRDConfig.from_json(other.to_json())`` carries a configuration between
 the two packages unchanged.  Fields whose datapath is not ported yet stay
 for that round-trip: ``interpret`` (the port has no interpret mode: a
-kernel runs on the GPU, its plain version on the CPU), the block-FP and
-fixed-point knobs, ``table_layout`` and ``mesh``.
+kernel runs on the GPU, its plain version on the CPU), the fixed-point
+knobs and ``mesh``.
 The device is not part of the configuration: it belongs to the engine.
 """
 from __future__ import annotations
@@ -46,14 +46,15 @@ class QRDConfig:
     dtype : str, numpy or torch dtype
         Element dtype of the problem, normalized to its name.  The
         bit-accurate backends return float64; complex dtypes select the
-        complex datapath (ROADMAP A9/B7).
+        complex datapath (complex128 results).
     interpret : bool, optional
         Kept for the JSON round-trip only; the port has no interpret mode.
     tile_b : int, optional
         Matrices per CUDA block of the packed-word kernel; ``None`` takes
         `repro_torch.kernels.qrd_blocked.TILE_B`.
-    table_layout : wavefront table layout (ROADMAP A8); kept for the JSON
-        round-trip.
+    table_layout : ``'split'`` or ``'stacked'``, the JAX package's transfer
+        layout of the wavefront's stage tables; accepted and validated, the
+        words do not depend on it.
     tiling : str, optional
         ``None``/``'auto'``, ``'flat'``, ``'panel'`` or ``'tsqr'``
         (`repro_torch.qrd.tiled.resolve_route`).

@@ -18,8 +18,9 @@ update paths, as in the JAX package:
 The state lives as float64 tensors on the device it was made for (the
 engine's).  The forgetting weights are float64 products computed as the
 JAX package computes them, so the carried ``R`` and ``z`` of the unit and
-block modes are the same bits on every device.  Complex QRD-RLS waits for
-the complex datapath (ROADMAP A9, kernel B7).
+block modes are the same bits on every device.  Complex QRD-RLS needs the
+unit's pivot-anywhere complex step, `GivensUnit.annihilate_complex`, which
+is not ported yet (ROADMAP A9); the complex QR datapath it builds on is.
 """
 from __future__ import annotations
 
@@ -112,7 +113,7 @@ class RLSState:
                             "complex QRD-RLS")
         if dtype == "complex128":
             raise NotImplementedError("complex QRD-RLS is not ported yet "
-                                      "(ROADMAP A9, kernel B7)")
+                                      "(ROADMAP A9, annihilate_complex)")
         self.n = int(n)
         self.lam = float(lam)
         self.mode = mode

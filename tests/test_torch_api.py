@@ -1,11 +1,14 @@
 """The port's API surface on the CPU: configuration round-trips with the JAX
 package, routing decides as the JAX package does, the failure paths of
-what is not ported yet, and import hygiene (no JAX, no `repro`)."""
+what is not ported yet (and the JAX package's results where a path has
+been ported since), and import hygiene (no JAX, no `repro`)."""
 import dataclasses
 import os
 import subprocess
 import sys
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -14,6 +17,10 @@ from repro import qrd as japi
 from repro.core import qrd as jq
 from repro.core.formats import HALF as JHALF
 from repro.core.givens import GivensConfig as JConfig
+from repro.core.givens import GivensUnit as JUnit
+from repro.kernels import cordic_givens as jcg
+from repro.kernels import ops as jops
+from repro.kernels import qrd_blocked as jqb
 from repro.qrd import tiled as jtiled
 
 from repro_torch import qrd as tapi
@@ -95,6 +102,39 @@ def test_engine_defaults_to_the_gpu(monkeypatch):
     assert tapi.QRDEngine(backend="cordic", device="cpu").device.type == "cpu"
 
 
+class _Ref:
+    """A stand-in for a Pallas ref, so a JAX kernel body runs outside
+    Pallas."""
+
+    def __init__(self, v=None):
+        self.v = v
+
+    def __getitem__(self, idx):
+        return self.v
+
+    def __setitem__(self, idx, v):
+        self.v = v
+
+
+def _jax_stage_body(kernel, X, stages, m, **kw):
+    """A JAX wavefront kernel body on X over ``stages``, jitted whole (one
+    small compile; no Pallas interpret mode)."""
+    def run(X, piv, tgt, col):
+        out = _Ref()
+        kernel(_Ref(piv), _Ref(tgt), _Ref(col), _Ref(X), out,
+               S=piv.shape[0], table_layout="split", **kw)
+        return out.v
+    tables = jops._stage_tables(stages, m)
+    return jax.jit(run)(jnp.asarray(X), *(jnp.asarray(t) for t in tables))
+
+
+def _bits_equal(want, got):
+    want = np.ascontiguousarray(np.asarray(want))
+    got = np.ascontiguousarray(got.resolve_conj().numpy())
+    assert want.shape == got.shape and want.dtype == got.dtype
+    np.testing.assert_array_equal(want.view(np.int64), got.view(np.int64))
+
+
 def test_unported_paths_raise():
     eng = tapi.QRDEngine(backend="cordic_pallas", dtype="float64",
                          device="cpu")
@@ -106,12 +146,26 @@ def test_unported_paths_raise():
         assert torch.equal(got, want)
     with pytest.raises(ValueError, match="max_shape"):
         eng(np.ones((200, 200)))
+    # the wavefront (ROADMAP A8, kernel B5a) and the complex datapath (A9,
+    # kernel B7a) are ported: the JAX package's Q and R, from its encode,
+    # kernel body, decode and split
+    eye = np.eye(4)[None]                    # the kernels take a batch axis
+    ju = JUnit(JConfig())
     sk = tapi.QRDEngine(backend="cordic_pallas", schedule="sameh_kuck",
                         dtype="float64", device="cpu")
-    with pytest.raises(NotImplementedError, match="B5"):
-        sk(np.eye(4))
-    with pytest.raises(NotImplementedError, match="B7"):
-        eng(np.eye(4) * (1 + 1j))
+    words = _jax_stage_body(jqb._qr_packed_wavefront_kernel,
+                            ju.encode(jq._augment(jnp.asarray(eye), True)),
+                            jq.sameh_kuck_schedule(4, 4), 4, cfg=ju.cfg)
+    for want, got in zip(jq._split_qr(ju.decode(words), 4, 4, True), sk(eye)):
+        _bits_equal(want, got)
+    C = eye * (1 + 1j)
+    words = _jax_stage_body(
+        jqb._qr_packed_complex_wavefront_kernel,
+        jq._encode_complex(ju, jq._augment_complex(jnp.asarray(C), True)),
+        tuple((s,) for s in jq.givens_schedule(4, 4)), 4, cfg=ju.cfg)
+    want = jq._split_qr_complex(jq._decode_complex(ju, words), 4, 4, True)
+    for want, got in zip(want, eng(C)):
+        _bits_equal(want, got)
     # streaming RLS is ported (ROADMAP A6): the cordic family updates on
     # the bit-accurate unit, on the engine's device
     st = eng.rls(4)
@@ -121,13 +175,20 @@ def test_unported_paths_raise():
         eng.fleet(2, 4)
     with pytest.raises(NotImplementedError, match="A12"):
         tapi.QRDEngine(backend="cordic", device="cpu", mesh=object())
-    # the block-FP lane is ported (ROADMAP A5, kernels B2/B4); its
-    # wavefront schedule is not (A8, kernel B5)
+    # the block-FP lane is ported (ROADMAP A5, kernels B2/B4), and its
+    # wavefront schedule (A8, kernel B5b): the JAX package's Q and R
     bfp = tapi.QRDEngine(backend="blockfp_pallas", device="cpu")
     assert bfp.capabilities.max_shape == (128, 128)
-    with pytest.raises(NotImplementedError, match="B5"):
-        tapi.QRDEngine(backend="blockfp_pallas", schedule="sameh_kuck",
-                       device="cpu")(np.eye(4))
+    iters = bfp.config.blockfp_iters()
+    X, ex = jops._blockfp_encode(jq._augment(jnp.asarray(eye), True), 24)
+    words = _jax_stage_body(jqb._qr_blockfp_wavefront_kernel, X,
+                            jq.sameh_kuck_schedule(4, 4), 4, iters=iters,
+                            hub=False, comp=jcg.comp_q30(iters))
+    want = jq._split_qr(jops._blockfp_decode(words, ex, 24), 4, 4, True)
+    got = tapi.QRDEngine(backend="blockfp_pallas", schedule="sameh_kuck",
+                         device="cpu")(eye)
+    for want, got in zip(want, got):
+        _bits_equal(want, got)
     for name in ("jnp", "givens_float", "fixed"):
         with pytest.raises(ValueError, match="unknown backend"):
             tapi.QRDEngine(backend=name, device="cpu")

@@ -368,8 +368,23 @@ def test_backend_capabilities_and_schedules_equal_jax():
     assert (over.blockfp_iters(), over.blockfp_hub()) == (30, True)
     for s1, s2 in ((3, 2), (4, 1)):
         assert tops.rls_block_steps(s1, s2) == jops.rls_block_steps(s1, s2)
-    with pytest.raises(NotImplementedError, match="A8"):
-        _engine(schedule="sameh_kuck")(np.eye(4))
+    # the wavefront schedule is ported (ROADMAP A8, kernel B5b): the JAX
+    # package's Q and R, from its encode, wavefront kernel body (jitted
+    # outside Pallas), decode and split
+    eye = np.eye(4)[None]
+    X, ex = jops._blockfp_encode(jq._augment(jnp.asarray(eye), True), 24)
+    tables = jops._stage_tables(jq.sameh_kuck_schedule(4, 4), 4)
+
+    def body(X, piv, tgt, col):
+        out = _Ref()
+        jqb._qr_blockfp_wavefront_kernel(
+            _Ref(piv), _Ref(tgt), _Ref(col), _Ref(X), out, iters=24, hub=True,
+            comp=jcg.comp_q30(24), S=piv.shape[0], table_layout="split")
+        return out.v
+    words = jax.jit(body)(X, *(jnp.asarray(t) for t in tables))
+    want = jq._split_qr(jops._blockfp_decode(words, ex, 24), 4, 4, True)
+    for w, g in zip(want, _engine(schedule="sameh_kuck")(eye)):
+        _bits_equal(w, g)
 
 
 # ---------------------------------------------------------------------------

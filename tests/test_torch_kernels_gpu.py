@@ -1,6 +1,7 @@
 """The CUDA kernels of `repro_torch` (the flat kernel, the panel factor and
-apply kernels of the packed lane, and their three block-FP twins) against
-their plain PyTorch versions, on the GPU.
+apply kernels of the packed lane, their three block-FP twins, the two
+wavefront kernels and the two complex kernels) against their plain PyTorch
+versions, on the GPU.
 
 Marked ``gpu``: the kernels have no CPU or interpret mode, so these tests
 skip on a machine without CUDA (the `cuda` fixture decides, at run time).
@@ -242,3 +243,156 @@ def test_blockfp_engine_and_rls_on_gpu_equal_cpu(cuda):
         st.flush()
     assert torch.equal(states[0].R.cpu(), states[1].R)
     assert torch.equal(states[0].z.cpu(), states[1].z)
+
+
+# ---------------------------------------------------------------------------
+# the Sameh–Kuck wavefront (csrc/wavefront.cu) and the complex datapath
+# (csrc/complex_packed.cu)
+# ---------------------------------------------------------------------------
+WF_SHAPES = ((4, 4, True), (6, 3, True), (3, 6, True), (2, 3, False),
+             (16, 16, True))
+
+
+@pytest.mark.parametrize("i", [0, 1, 2, 3])
+def test_wavefront_kernels_bit_equal_to_plain_versions(cuda, i):
+    """B5a against its plain version and B1 on the flattened stages (the
+    four datapath variants at N = 26); B5b against its plain version and
+    B2 at one (hub, iters) each; square and non-square shapes."""
+    cfg = CONFIGS[i]
+    hub, iters = chip_smoke.BFP_CONFIGS[i]
+    rng = np.random.default_rng(40 + i)
+    before = (qb.QR_PACKED_WAVEFRONT_LAUNCHES, qb.QR_BLOCKFP_WAVEFRONT_LAUNCHES)
+    for (m, n, cq) in WF_SHAPES:
+        e = n + (m if cq else 0)
+        tabs = chip_smoke.stage_tables(m, n)
+        flat = chip_smoke.flat_order(m, n)
+        for P in (chip_smoke.encoded_words(cfg, 8, m, n, cq, rng, cuda),
+                  chip_smoke.edge_words(cfg, 8, m, e, rng, cuda)):
+            got = chip_smoke.check_plain(
+                "qr_packed_wavefront", qb.qr_packed_wavefront_call,
+                qb.qr_packed_wavefront_reference, P, *tabs, cfg=cfg,
+                table_layout=qb.TABLE_LAYOUTS[m % 2])
+            assert torch.equal(got, qb.qr_packed_call(P, cfg=cfg, steps=flat))
+        for edge in (False, True):
+            X = chip_smoke.bfp_words(8, m, e, rng, cuda, edge)
+            got = chip_smoke.check_plain(
+                "qr_blockfp_wavefront", qb.qr_blockfp_wavefront_call,
+                qb.qr_blockfp_wavefront_reference, X, *tabs, iters=iters,
+                hub=hub)
+            assert torch.equal(got, qb.qr_blockfp_call(X, iters=iters, hub=hub,
+                                                       steps=flat))
+    assert qb.QR_PACKED_WAVEFRONT_LAUNCHES == before[0] + 2 * len(WF_SHAPES)
+    assert qb.QR_BLOCKFP_WAVEFRONT_LAUNCHES == before[1] + 2 * len(WF_SHAPES)
+
+
+@pytest.mark.parametrize("tile_b", [1, 2, 4])
+def test_wavefront_and_complex_ragged_batch(cuda, tile_b):
+    rng = np.random.default_rng(50 + tile_b)
+    cfg = CONFIGS[2]
+    tabs = chip_smoke.stage_tables(6, 4)
+    P = chip_smoke.encoded_words(cfg, 5, 6, 4, True, rng, cuda)
+    chip_smoke.check_plain("qr_packed_wavefront", qb.qr_packed_wavefront_call,
+                           qb.qr_packed_wavefront_reference, P, *tabs,
+                           cfg=cfg, tile_b=tile_b)
+    X = chip_smoke.bfp_words(5, 6, 10, rng, cuda)
+    chip_smoke.check_plain("qr_blockfp_wavefront", qb.qr_blockfp_wavefront_call,
+                           qb.qr_blockfp_wavefront_reference, X, *tabs,
+                           iters=24, hub=True, tile_b=tile_b)
+    C = chip_smoke.complex_words(cfg, 5, 6, 4, True, rng, cuda)
+    chip_smoke.check_plain("qr_packed_complex", qb.qr_packed_complex_call,
+                           qb.qr_packed_complex_reference, C, cfg=cfg,
+                           steps=givens_schedule(6, 4), tile_b=tile_b)
+    chip_smoke.check_plain("qr_packed_complex_wavefront",
+                           qb.qr_packed_complex_wavefront_call,
+                           qb.qr_packed_complex_wavefront_reference, C, *tabs,
+                           cfg=cfg, tile_b=tile_b)
+
+
+@pytest.mark.parametrize("i", [0, 2])
+def test_complex_kernels_bit_equal_to_plain_versions(cuda, i):
+    """B7a and B7b against their plain versions on random and edge words
+    (exactly real and zero leads, an all-zero column), B7b also against B7a
+    on the flattened stages; purely real words give B1's words and +-0
+    imaginary words."""
+    cfg = CONFIGS[i]
+    rng = np.random.default_rng(60 + i)
+    before = (qb.QR_PACKED_COMPLEX_LAUNCHES,
+              qb.QR_PACKED_COMPLEX_WAVEFRONT_LAUNCHES)
+    for (m, n, cq) in WF_SHAPES[:4]:
+        tabs = chip_smoke.stage_tables(m, n)
+        for edge in (False, True):
+            C = chip_smoke.complex_words(cfg, 8, m, n, cq, rng, cuda, edge)
+            chip_smoke.check_plain("qr_packed_complex", qb.qr_packed_complex_call,
+                                   qb.qr_packed_complex_reference, C, cfg=cfg,
+                                   steps=givens_schedule(m, n))
+            got = chip_smoke.check_plain(
+                "qr_packed_complex_wavefront",
+                qb.qr_packed_complex_wavefront_call,
+                qb.qr_packed_complex_wavefront_reference, C, *tabs, cfg=cfg)
+            assert torch.equal(got, qb.qr_packed_complex_call(
+                C, cfg=cfg, steps=chip_smoke.flat_order(m, n)))
+    C = chip_smoke.complex_words(cfg, 8, 6, 3, True, rng, cuda)
+    C[..., 1] = 0
+    got = qb.qr_packed_complex_call(C, cfg=cfg, steps=givens_schedule(6, 3))
+    real = qb.qr_packed_call(C[..., 0].contiguous(), cfg=cfg,
+                             steps=givens_schedule(6, 3))
+    assert torch.equal(got[..., 0], real)
+    assert chip_smoke.packed_is_zero(got[..., 1], cfg.fmt).all()
+    assert qb.QR_PACKED_COMPLEX_LAUNCHES == before[0] + 17
+    assert qb.QR_PACKED_COMPLEX_WAVEFRONT_LAUNCHES == before[1] + 8
+
+
+def test_wavefront_and_complex_device_memory_tiles_at_128(cuda):
+    """At 128 x 128 with Q the packed wavefront tile (256 KiB) and the
+    complex tiles (512 KiB) exceed shared memory and live in device memory:
+    the wavefront equals the flat kernel on the flattened stages, and the
+    complex wavefront the complex flat kernel."""
+    rng = np.random.default_rng(70)
+    cfg = CONFIGS[2]
+    tabs = chip_smoke.stage_tables(128, 128)
+    flat = chip_smoke.flat_order(128, 128)
+    P = chip_smoke.encoded_words(cfg, 3, 128, 128, True, rng, cuda)
+    assert P[0].numel() * 8 > qb.MAX_SHARED_BYTES
+    assert torch.equal(qb.qr_packed_wavefront_call(P, *tabs, cfg=cfg),
+                       qb.qr_packed_call(P, cfg=cfg, steps=flat))
+    C = chip_smoke.complex_words(cfg, 2, 128, 128, True, rng, cuda)
+    assert torch.equal(qb.qr_packed_complex_wavefront_call(C, *tabs, cfg=cfg),
+                       qb.qr_packed_complex_call(C, cfg=cfg, steps=flat))
+
+
+def test_wavefront_and_complex_device_memory_mode(cuda, monkeypatch):
+    """The device-memory mode against the plain versions at a small shape,
+    forced by lowering the shared-memory limit."""
+    monkeypatch.setattr(qb, "MAX_SHARED_BYTES", 0)
+    rng = np.random.default_rng(71)
+    cfg = CONFIGS[0]
+    tabs = chip_smoke.stage_tables(12, 6)
+    for tile_b in (1, 2):
+        P = chip_smoke.edge_words(cfg, 5, 12, 18, rng, cuda)
+        chip_smoke.check_plain("qr_packed_wavefront", qb.qr_packed_wavefront_call,
+                               qb.qr_packed_wavefront_reference, P, *tabs,
+                               cfg=cfg, tile_b=tile_b)
+        C = chip_smoke.complex_words(cfg, 5, 12, 6, True, rng, cuda, True)
+        chip_smoke.check_plain("qr_packed_complex", qb.qr_packed_complex_call,
+                               qb.qr_packed_complex_reference, C, cfg=cfg,
+                               steps=givens_schedule(12, 6), tile_b=tile_b)
+        chip_smoke.check_plain("qr_packed_complex_wavefront",
+                               qb.qr_packed_complex_wavefront_call,
+                               qb.qr_packed_complex_wavefront_reference, C,
+                               *tabs, cfg=cfg, tile_b=tile_b)
+
+
+def test_wavefront_and_complex_engines_on_gpu_equal_cpu(cuda):
+    A = np.random.default_rng(72).normal(size=(5, 6, 4))
+    C = A + 1j * np.random.default_rng(73).normal(size=(5, 6, 4))
+    g = chip_smoke.GivensConfig(hub=True, n=26)
+    for backend, X, kw in (("cordic_pallas", A, dict(schedule="sameh_kuck")),
+                           ("blockfp_pallas", A, dict(schedule="sameh_kuck")),
+                           ("cordic_pallas", C, dict(dtype="complex128")),
+                           ("cordic_pallas", C, dict(dtype="complex128",
+                                                     schedule="sameh_kuck"))):
+        kw.setdefault("dtype", "float64")
+        Qg, Rg = QRDEngine(backend=backend, givens=g, **kw)(X)
+        Qc, Rc = QRDEngine(backend=backend, givens=g, device="cpu", **kw)(X)
+        assert Qg.device.type == "cuda"
+        assert torch.equal(Qg.cpu(), Qc) and torch.equal(Rg.cpu(), Rc)
