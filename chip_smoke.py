@@ -11,7 +11,10 @@ at full width — flat (8192 x 32 x 32), panel (1024 x 64 x 64) and TSQR
 ``QRDEngine(backend='blockfp_pallas')`` and its streaming QRD-RLS
 (``engine.rls``), then the Sameh–Kuck wavefront of both lanes
 (``schedule='sameh_kuck'``) and the complex datapath (``dtype=
-'complex128'``, both schedules, and the MIMO detector's 4 x 4 solve),
+'complex128'``, both schedules, and the MIMO detector's 4 x 4 solve), then
+the standalone rotator's row API (``givens_rotate_rows_fixed`` and
+``_fused``) at 32 Mi elements, the three baselines (``jnp``,
+``givens_float``, ``fixed``) and ``examples/torch_quickstart.py``,
 checks the results, times the kernels with CUDA events, and prints one
 JSON line describing each kernel followed by a final ``{"ok": true,
 "device": ...}`` line.  Any failed phase exits non-zero.
@@ -37,9 +40,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 from repro_torch.core.formats import HALF, SINGLE, pack_fields, packed_is_zero  # noqa: E402
 from repro_torch.core.givens import GivensConfig, GivensUnit  # noqa: E402
 from repro_torch.core.qrd import givens_schedule, sameh_kuck_schedule  # noqa: E402
+from repro_torch.core.qrd import snr_db as port_snr_db  # noqa: E402
 from repro_torch.core.qrd import (qr_blockfp_pallas, qr_cordic_complex_pallas,  # noqa: E402
                                   qr_cordic_pallas)
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import cordic_givens as cg  # noqa: E402
 from repro_torch.kernels import qrd_blocked as qb  # noqa: E402
 from repro_torch.qrd import QRDEngine, RLSState, SOLVE_TOLERANCES  # noqa: E402
 from repro_torch.qrd.tiled import tsqr_host_reference  # noqa: E402
@@ -75,16 +80,21 @@ BIG_BATCH, BIG_M = 132, 128
 #: and 8 each).
 PANEL_PARITY_SHAPES = ((12, 6, True), (20, 5, False))
 
-COUNTERS = {"qr_packed": "QR_PACKED_LAUNCHES",
-            "panel_factor_packed": "PANEL_FACTOR_LAUNCHES",
-            "panel_apply_packed": "PANEL_APPLY_LAUNCHES",
-            "qr_blockfp": "QR_BLOCKFP_LAUNCHES",
-            "panel_factor_blockfp": "PANEL_FACTOR_BLOCKFP_LAUNCHES",
-            "panel_apply_blockfp": "PANEL_APPLY_BLOCKFP_LAUNCHES",
-            "qr_packed_wavefront": "QR_PACKED_WAVEFRONT_LAUNCHES",
-            "qr_blockfp_wavefront": "QR_BLOCKFP_WAVEFRONT_LAUNCHES",
-            "qr_packed_complex": "QR_PACKED_COMPLEX_LAUNCHES",
-            "qr_packed_complex_wavefront": "QR_PACKED_COMPLEX_WAVEFRONT_LAUNCHES"}
+#: Each kernel's launch counter: its wrapper module and attribute.
+COUNTERS = {"qr_packed": (qb, "QR_PACKED_LAUNCHES"),
+            "panel_factor_packed": (qb, "PANEL_FACTOR_LAUNCHES"),
+            "panel_apply_packed": (qb, "PANEL_APPLY_LAUNCHES"),
+            "qr_blockfp": (qb, "QR_BLOCKFP_LAUNCHES"),
+            "panel_factor_blockfp": (qb, "PANEL_FACTOR_BLOCKFP_LAUNCHES"),
+            "panel_apply_blockfp": (qb, "PANEL_APPLY_BLOCKFP_LAUNCHES"),
+            "qr_packed_wavefront": (qb, "QR_PACKED_WAVEFRONT_LAUNCHES"),
+            "qr_blockfp_wavefront": (qb, "QR_BLOCKFP_WAVEFRONT_LAUNCHES"),
+            "qr_packed_complex": (qb, "QR_PACKED_COMPLEX_LAUNCHES"),
+            "qr_packed_complex_wavefront": (
+                qb, "QR_PACKED_COMPLEX_WAVEFRONT_LAUNCHES"),
+            "vectoring": (cg, "VECTORING_LAUNCHES"),
+            "rotation": (cg, "ROTATION_LAUNCHES"),
+            "fused": (cg, "FUSED_LAUNCHES")}
 
 #: The panel kernels of each lane, and the bytes of one word.
 LANES = {"packed": ("panel_factor_packed", "panel_apply_packed"),
@@ -188,12 +198,13 @@ def fail(msg):
 
 
 def reset_counts():
-    for attr in COUNTERS.values():
-        setattr(qb, attr, 0)
+    for module, attr in COUNTERS.values():
+        setattr(module, attr, 0)
 
 
 def read_counts():
-    return {name: getattr(qb, attr) for name, attr in COUNTERS.items()}
+    return {name: getattr(module, attr)
+            for name, (module, attr) in COUNTERS.items()}
 
 
 def check_kernel(P, cfg, steps, tile_b=None):
@@ -1707,6 +1718,385 @@ def complex_path(device):
                 big_shape=list(Pb.shape))
 
 
+# ---------------------------------------------------------------------------
+# The standalone rotator (B6a, B6b, B6c), the three baselines and the
+# quickstart
+# ---------------------------------------------------------------------------
+#: The rotator's parity cases: batches, row widths (the lead pair included)
+#: and CORDIC depths, on random significands and on edge words (which wrap
+#: as XLA's int32 does).
+ROT_BATCHES = (1, 7, 8, 33, 4099)
+ROT_WIDTHS = (1, 2, 5, 128, 300, 1025)
+ROT_ITERS = (8, 16, 24, 28, 30)
+ROT_EDGE = (0, 1, -1, 2 ** 29 - 1, -(2 ** 29 - 1), -2 ** 31, 2 ** 31 - 1)
+
+#: The rotator at full size, HUB, N = 26 (iters 24), 32 Mi elements an
+#: operand (128 MiB of int32): rows of 8 (the paper's 4 x 4 QRD with Q,
+#: benchmarks/table6_7_throughput.py's E) and of 128 (the row of its
+#: measured_kernel_rate).
+ROT_FULL = ((4194304, 8), (262144, 128))
+ROT_ITERS_FULL = 24
+
+#: The rotator kernels' names in COUNTERS, the TPU kernels they replace.
+ROT_KERNELS = {"vectoring": ("src/repro/kernels/cordic_givens.py:132",
+                             "vectoring_call / _vectoring_kernel", "B6a"),
+               "rotation": ("src/repro/kernels/cordic_givens.py:171",
+                            "rotation_call / _rotation_kernel", "B6b"),
+               "fused": ("src/repro/kernels/cordic_givens.py:330",
+                         "fused_call / _fused_kernel", "B6c")}
+
+#: The baselines on the card: (backend, dtype) at (batch, m, n), QR and
+#: solve; the forward error of a square solve is gated on the matrices of
+#: condition number <= BASELINE_KAPPA (the tolerances are documented for
+#: well-conditioned inputs), the backward error on all.
+BASELINES = (("jnp", "float32"), ("givens_float", "float32"),
+             ("givens_float", "complex64"), ("fixed", "float32"))
+BASELINE_SHAPES = ((8192, 4, 4), (1024, 32, 32))
+BASELINE_KAPPA = 100.0
+JNP_CPU_TOL = 1e-4
+#: 'fixed' and 'givens_float' on the card against the same call on the CPU,
+#: on the first BASELINE_CPU_SLICE matrices of the batch: 'fixed' word for
+#: word (its rotations are integer arithmetic), 'givens_float' within
+#: GIVENS_FLOAT_CPU_ULPS float32 ulps of 1 (Q) and of max|A| (R).
+BASELINE_CPU_SLICE = 64
+GIVENS_FLOAT_CPU_ULPS = 32
+
+
+def rotator_rows(B, W, rng, device, edge=False):
+    """(2, B, W) int32 significands uniform(-1.9, 1.9) * 2^24 (as
+    tests/test_kernels.py makes them); with ``edge`` a quarter of them are
+    edge words."""
+    X = np.rint(rng.uniform(-1.9, 1.9, size=(2, B, W)) * 2.0 ** 24)
+    X = X.astype(np.int64)
+    if edge:
+        mask = rng.random(X.shape) < 0.25
+        X[mask] = rng.choice(np.array(ROT_EDGE, np.int64), size=int(mask.sum()))
+    return torch.tensor(X.astype(np.int32), device=device)
+
+
+def check_rotator(x, y, kw, what):
+    """B6a on column 0 (a strided view), B6b on columns 1: (row stride W),
+    B6c on the rows: each bit-equal to its plain version on the same
+    tensors, and givens_rotate_rows_fixed bit-equal to the fused rows."""
+    v = cg.vectoring_call(x[:, 0], y[:, 0], **kw)
+    compare(f"vectoring {what}", v, cg.vectoring_reference(x[:, 0], y[:, 0], **kw))
+    r = cg.rotation_call(x[:, 1:], y[:, 1:], v[2], v[3], **kw)
+    compare(f"rotation {what}", r,
+            cg.rotation_reference(x[:, 1:], y[:, 1:], v[2], v[3], **kw))
+    f = cg.fused_call(x, y, **kw)
+    compare(f"fused {what}", f, cg.fused_reference(x, y, **kw))
+    compare(f"givens_rotate_rows_fixed vs _fused {what}",
+            ops.givens_rotate_rows_fixed(x, y, **kw), f)
+
+
+def rotator_parity_phase(device):
+    """B6a, B6b, B6c against their plain versions on every (B, W, iters,
+    hub) case, random and edge words; B = 0 launches nothing."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 15)
+    n = 0
+    for B, W in itertools.product(ROT_BATCHES, ROT_WIDTHS):
+        for edge in (False, True):
+            X = rotator_rows(B, W, rng, device, edge)
+            for iters, hub in itertools.product(ROT_ITERS, (True, False)):
+                check_rotator(X[0], X[1], dict(iters=iters, hub=hub),
+                              f"B={B} W={W} iters={iters} hub={hub} "
+                              f"edge={edge}")
+                n += 1
+    X = rotator_rows(0, 5, rng, device)
+    _, counts = counted_call(lambda: check_rotator(X[0], X[1],
+                                                   dict(iters=24, hub=True),
+                                                   "B=0"))
+    if any(counts.values()):
+        fail(f"rotator with B = 0 launched {counts}")
+    torch.cuda.synchronize()
+    print(f"rotator parity: vectoring, rotation and fused bit-equal to their "
+          f"plain versions and givens_rotate_rows_fixed to _fused on {n} "
+          f"cases (B in {ROT_BATCHES}, W in {ROT_WIDTHS}, iters in "
+          f"{ROT_ITERS}, HUB and conventional, random and edge words); "
+          f"B = 0 launches nothing; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def _rot_bytes_ops(name, B, L):
+    """Elements rotated and bytes moved by one rotator kernel on (B, L) rows
+    (each input read once, each output written once)."""
+    if name == "vectoring":        # a lead pair in, the pair and (flip, sigma) out
+        return B, 24 * B
+    if name == "rotation":         # the rows but the lead, and the words read
+        return B * (L - 1), 16 * B * (L - 1) + 8 * B
+    return B * L, 16 * B * L       # fused, and the row API
+
+
+def rotator_full_phase(device):
+    """The row API at full size: the main path of the rotator, counted;
+    then each kernel and the API functions timed (median of 5 warm CUDA
+    event timings), the plain versions timed once, all bit-equal."""
+    rng = np.random.default_rng(SEED + 16)
+    kw = dict(iters=ROT_ITERS_FULL, hub=True)
+    rows = [rotator_rows(B, L, rng, device) for B, L in ROT_FULL]
+    reset_counts()
+    t0 = time.perf_counter()
+    outs = [(ops.givens_rotate_rows_fixed(X[0], X[1], **kw),
+             ops.givens_rotate_rows_fused(X[0], X[1], **kw)) for X in rows]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    want = {name: (2 if name in ROT_KERNELS else 0) for name in COUNTERS}
+    if counts != want:
+        fail(f"rotator main path: launches {counts}, expected {want}")
+    print(f"rotator main path: givens_rotate_rows_fixed and _fused at "
+          f"{ROT_FULL} (B, L): launches {counts}, {wall:.3f} s wall (first "
+          f"calls)", flush=True)
+    result = {"launches": {k: counts[k] for k in ROT_KERNELS}, "shapes": {}}
+    for (B, L), X, (fixed, fused) in zip(ROT_FULL, rows, outs):
+        x, y = X[0], X[1]
+        compare(f"givens_rotate_rows_fixed vs _fused at {(B, L)}", fixed, fused)
+        v = cg.vectoring_call(x[:, 0], y[:, 0], **kw)
+        calls = {"vectoring": (lambda: cg.vectoring_call(x[:, 0], y[:, 0], **kw),
+                               lambda: cg.vectoring_reference(x[:, 0], y[:, 0],
+                                                              **kw)),
+                 "rotation": (lambda: cg.rotation_call(x[:, 1:], y[:, 1:], v[2],
+                                                       v[3], **kw),
+                              lambda: cg.rotation_reference(x[:, 1:], y[:, 1:],
+                                                            v[2], v[3], **kw)),
+                 "fused": (lambda: cg.fused_call(x, y, **kw),
+                           lambda: cg.fused_reference(x, y, **kw))}
+        entry = {}
+        for name, (kernel, plain) in calls.items():
+            kernel()
+            ms, got = _event_ms(kernel, 5)
+            plain_ms, want_out = _event_ms(plain, 1)
+            compare(f"{name} at {(B, L)} against its plain version", got,
+                    want_out)
+            elements, nbytes = _rot_bytes_ops(name, B, L)
+            bound_ms, bound_by = bfp_bound(True, ROT_ITERS_FULL, elements,
+                                           nbytes)
+            entry[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by,
+                               max_abs_err=max((g - w).abs().max().item()
+                                               for g, w in zip(got, want_out)))
+        for api in ("givens_rotate_rows_fixed", "givens_rotate_rows_fused"):
+            fn = getattr(ops, api)
+            fn(x, y, **kw)
+            ms, _ = _event_ms(lambda: fn(x, y, **kw), 5)
+            bound_ms, bound_by = bfp_bound(True, ROT_ITERS_FULL,
+                                           *_rot_bytes_ops("fused", B, L))
+            entry[api] = dict(ms=ms, rotations_per_s=B / (ms * 1e-3),
+                              bound_ms=bound_ms, bound_by=bound_by)
+        result["shapes"][(B, L)] = entry
+        print(f"rotator at (B, L) = ({B}, {L}), HUB iters {ROT_ITERS_FULL}, "
+              f"{B * L} elements an operand:", flush=True)
+        for name, e in entry.items():
+            extra = (f"plain {e['plain_ms']:.3f} ms" if "plain_ms" in e else
+                     f"{e['rotations_per_s']:.4e} rotations (row pairs)/s")
+            print(f"  {name}: {e['ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+                  f"({e['bound_by']}), {extra}", flush=True)
+    return result
+
+
+def cplx_snr_db(A, Q, R):
+    """`snr_db` with |.|^2, for complex factors."""
+    num = torch.sum(A.abs() ** 2, dim=(-2, -1))
+    den = torch.sum((A - Q @ R).abs() ** 2, dim=(-2, -1))
+    return 10.0 * torch.log10(num / torch.clamp(den, min=1e-300))
+
+
+def _r_normalized(R):
+    """R with rows scaled so its diagonal is >= 0 (LAPACK and cuSOLVER may
+    pick other reflector signs)."""
+    d = torch.sgn(torch.diagonal(R, dim1=-2, dim2=-1))
+    d = torch.where(d == 0, torch.ones_like(d), d)
+    k = d.shape[-1]
+    Rn = R.clone()
+    Rn[..., :k, :] = R[..., :k, :] * d.conj()[..., :, None]
+    return Rn
+
+
+def baseline_solve_gate(what, x, A, b, tol):
+    """The solve's relative error against a float64 least-squares solve:
+    the largest over all matrices printed met or unmet, gated at ``tol`` on
+    the matrices of condition number <= BASELINE_KAPPA, and the normwise
+    backward error |Ax - b| / (|A| |x| + |b|) gated at ``tol`` on all."""
+    ref = torch.linalg.lstsq(A, b[..., None]).solution[..., 0]
+    rel = (torch.linalg.vector_norm(x - ref, dim=-1)
+           / torch.linalg.vector_norm(ref, dim=-1))
+    kappa = torch.linalg.cond(A)
+    well = kappa <= BASELINE_KAPPA
+    err, err_well = rel.max().item(), rel[well].max().item()
+    resid = torch.linalg.vector_norm((A @ x[..., None])[..., 0] - b, dim=-1)
+    eta = (resid / (torch.linalg.matrix_norm(A, ord=2)
+                    * torch.linalg.vector_norm(x, dim=-1)
+                    + torch.linalg.vector_norm(b, dim=-1))).max().item()
+    if not (torch.isfinite(torch.view_as_real(x) if x.is_complex() else x).all()
+            and err_well <= tol and eta <= tol):
+        fail(f"{what}: relative error {err_well} on the matrices with cond <= "
+             f"{BASELINE_KAPPA}, backward error {eta} (limit {tol})")
+    worst = int(rel.argmax())
+    return (f"solve max |x-x_lstsq|/|x_lstsq| {err:.3e} (matrix {worst}, "
+            f"cond {kappa[worst].item():.1f}): "
+            f"{'met' if err <= tol else f'UNMET on {int((rel > tol).sum())} of {rel.numel()}'}"
+            f" against {tol}; gated {err_well:.3e} on {int(well.sum())} with "
+            f"cond <= {BASELINE_KAPPA:g}, backward {eta:.3e}")
+
+
+def baseline_cpu_gate(what, eng, A, Q, R):
+    """The card's (Q, R) of a 'fixed' or 'givens_float' engine against the
+    same call with device='cpu' on the first BASELINE_CPU_SLICE matrices:
+    'fixed' bit-equal, 'givens_float' within GIVENS_FLOAT_CPU_ULPS float32
+    ulps of 1 for Q and of max|A| for R."""
+    k = min(BASELINE_CPU_SLICE, A.shape[0])
+    cfg = eng.config
+    Qc, Rc = QRDEngine(cfg, device="cpu")(A[:k].cpu())
+    if cfg.backend == "fixed":
+        same = torch.equal(Q[:k].cpu(), Qc) and torch.equal(R[:k].cpu(), Rc)
+        if not same:
+            fail(f"{what}: card differs from the CPU on the first {k} "
+                 f"matrices")
+        return f"card == CPU word for word on the first {k} matrices"
+    ulp = torch.finfo(torch.float32).eps
+    amax = A[:k].abs().max().item()
+    dQ = (Q[:k].cpu() - Qc).abs().max().item()
+    dR = (R[:k].cpu() - Rc).abs().max().item()
+    if not (dQ <= GIVENS_FLOAT_CPU_ULPS * ulp
+            and dR <= GIVENS_FLOAT_CPU_ULPS * ulp * amax):
+        fail(f"{what}: card vs CPU max |dQ| {dQ}, max |dR| {dR} on the "
+             f"first {k} matrices (limits {GIVENS_FLOAT_CPU_ULPS} ulps of 1 "
+             f"and of max|A| {amax})")
+    return (f"card vs CPU on the first {k}: max |dQ| {dQ / ulp:.2f} ulps, "
+            f"max |dR| {dR / (ulp * amax):.2f} ulps of max|A| (limit "
+            f"{GIVENS_FLOAT_CPU_ULPS})")
+
+
+def baselines_phase(device):
+    """QRDEngine(backend='jnp' | 'givens_float' | 'fixed') on the card: QR
+    and solve at both shapes, mean SNR, the solve within SOLVE_TOLERANCES
+    (gated as `baseline_solve_gate` says), 'jnp' on the card within
+    JNP_CPU_TOL of 'jnp' on the CPU, and the other two held to their CPU
+    results (`baseline_cpu_gate`).  These backends launch no kernel of
+    the package."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 17)
+    out = {}
+    for (B, m, n) in BASELINE_SHAPES:
+        A = rng.normal(size=(B, m, n))
+        Ai = rng.normal(size=(B, m, n))
+        b = rng.normal(size=(B, m))
+        bi = rng.normal(size=(B, m))
+        for backend, dtype in BASELINES:
+            cplx = dtype.startswith("complex")
+            Ad = torch.tensor(A + 1j * Ai if cplx else A, device=device)
+            bd = torch.tensor(b + 1j * bi if cplx else b, device=device)
+            eng = QRDEngine(backend=backend, dtype=dtype, device=device)
+            t1 = time.perf_counter()
+            (Q, R), counts = counted_call(eng, Ad)
+            x, solve_counts = counted_call(eng.solve, Ad, bd)
+            wall = time.perf_counter() - t1
+            if any(counts.values()) or any(solve_counts.values()):
+                fail(f"{backend}: launched {counts} {solve_counts}")
+            want_dtype = (getattr(torch, dtype) if backend != "fixed"
+                          else torch.float64)
+            if (Q.shape != (B, m, m) or R.shape != (B, m, n)
+                    or R.dtype != want_dtype
+                    or not torch.isfinite(torch.view_as_real(R) if cplx else R).all()
+                    or not torch.isfinite(torch.view_as_real(Q) if cplx else Q).all()):
+                fail(f"{backend} {dtype} at {(B, m, n)}: Q {tuple(Q.shape)} R "
+                     f"{tuple(R.shape)} {R.dtype}, or not finite")
+            Q64 = Q.to(torch.complex128 if cplx else torch.float64)
+            R64 = R.to(Q64.dtype)
+            snr = (cplx_snr_db(Ad, Q64, R64) if cplx
+                   else port_snr_db(Ad, Q, R)).mean().item()
+            key = backend + (":complex" if cplx else "")
+            gate = baseline_solve_gate(f"{backend} {dtype} solve at {(B, m, n)}",
+                                       x, Ad, bd, SOLVE_TOLERANCES[key])
+            line = (f"baseline {backend} {dtype} at {(B, m, n)}: mean SNR "
+                    f"{snr:.2f} dB; {gate}; {wall:.3f} s wall")
+            if backend == "jnp":
+                Qc, Rc = QRDEngine(backend="jnp", device="cpu")(A)
+                dR = (_r_normalized(R).cpu() - _r_normalized(Rc)).abs().max().item()
+                dQR = (Q @ R).cpu().sub(Qc @ Rc).abs().max().item()
+                if not (dR <= JNP_CPU_TOL and dQR <= JNP_CPU_TOL):
+                    fail(f"jnp at {(B, m, n)}: card vs CPU max |dR| {dR}, "
+                         f"max |d(QR)| {dQR} (limit {JNP_CPU_TOL})")
+                line += (f"; card vs CPU max |dR| (diag R >= 0) {dR:.3e}, "
+                         f"max |d(QR)| {dQR:.3e} (limit {JNP_CPU_TOL})")
+            else:
+                line += "; " + baseline_cpu_gate(
+                    f"{backend} {dtype} at {(B, m, n)}", eng, Ad, Q, R)
+            print(line, flush=True)
+            out[backend, dtype, (B, m, n)] = snr
+    print(f"baselines: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def quickstart_phase():
+    """examples/torch_quickstart.main('cuda') to its end, its own
+    assertions included, with the counts set to 0 just before and read
+    just after: its cordic_pallas QRD launches qr_packed once."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                    "examples"))
+    import torch_quickstart
+    t0 = time.perf_counter()
+    res, counts = counted_call(torch_quickstart.main, "cuda")
+    want = {name: int(name == "qr_packed") for name in COUNTERS}
+    if counts != want:
+        fail(f"quickstart: launches {counts}, expected {want}")
+    print(f"quickstart: torch_quickstart.main('cuda') passed its assertions "
+          f"in {time.perf_counter() - t0:.1f} s; launches {counts}; {res}",
+          flush=True)
+    return counts
+
+
+def _rot_shape(name, B, L):
+    """The operand shape of a rotator kernel on (B, L) rows."""
+    return {"vectoring": [B], "rotation": [B, L - 1], "fused": [B, L]}[name]
+
+
+def rotator_entries(rot):
+    """The kernels line's entries of B6a, B6b and B6c from
+    `rotator_full_phase`'s result (times at rows of 8, with those at rows
+    of 128 beside them); prints the row API's rates."""
+    entries = []
+    (B8, L8), (B128, L128) = ROT_FULL
+    for name, (where, function, tag) in ROT_KERNELS.items():
+        e8 = rot["shapes"][B8, L8][name]
+        e128 = rot["shapes"][B128, L128][name]
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rotator.cu",
+            "replaces": where,
+            "replaces_function": function,
+            "tpu_kernel": tag,
+            "launches": rot["launches"][name],
+            "launches_per_call": ({"givens_rotate_rows_fused": 1}
+                                  if name == "fused" else
+                                  {"givens_rotate_rows_fixed": 1}),
+            "parity": "bit-equal",
+            "max_abs_err": max(e8["max_abs_err"], e128["max_abs_err"]),
+            "ms": e8["ms"],
+            "plain_ms": e8["plain_ms"],
+            "bound_ms": e8["bound_ms"],
+            "bound_by": e8["bound_by"],
+            "library_ms": None,
+            "shape": _rot_shape(name, B8, L8),
+            "ms_is": "median of 5 warm launches",
+            "plain_ms_is": "one call on the same tensors",
+            "l128_ms": e128["ms"],
+            "l128_plain_ms": e128["plain_ms"],
+            "l128_bound_ms": e128["bound_ms"],
+            "l128_shape": _rot_shape(name, B128, L128),
+            "config": f"hub iters={ROT_ITERS_FULL}",
+        })
+    for api in ("givens_rotate_rows_fixed", "givens_rotate_rows_fused"):
+        print(f"{api}: " + ", ".join(
+            f"(B, L) = {shape}: {e[api]['ms']:.4f} ms, "
+            f"{e[api]['rotations_per_s']:.4e} rotations/s, bound "
+            f"{e[api]['bound_ms']:.4f} ms" for shape, e in rot["shapes"].items()),
+            flush=True)
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one GPU",
@@ -1728,7 +2118,7 @@ def run(device):
     """Every phase on ``device``; returns 0 or exits non-zero."""
     t0 = time.perf_counter()
     sources = ["qr_packed", "panel_packed", "blockfp", "wavefront",
-               "complex_packed"]
+               "complex_packed", "rotator"]
     _build.build(sources)                      # one nvcc each, in parallel
     print(f"build: {', '.join(s + '.cu' for s in sources)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -1770,6 +2160,10 @@ def run(device):
     wave_big = wavefront_big_phase(device)
     complex_parity_phase(device)
     cplx = complex_path(device)
+    rotator_parity_phase(device)
+    rot = rotator_full_phase(device)
+    baselines_phase(device)
+    quickstart_phase()
 
     kernels = [{
         "name": "qr_packed",
@@ -1980,6 +2374,7 @@ def run(device):
             "device_tile_shape": cplx["big_shape"],
             "config": "hub n=26 iters=24",
         })
+    kernels += rotator_entries(rot)
     print(f"engine call host wall: panel path {panel_wall:.3f} ms, tsqr path "
           f"{tsqr_wall:.3f} ms; block-FP panel path {bfp_panel_wall:.3f} ms, "
           f"tsqr path {bfp_tsqr_wall:.3f} ms", flush=True)

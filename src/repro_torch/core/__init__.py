@@ -1,11 +1,15 @@
-# The paper's unit as torch int64 ops (bit-identical to `repro.core`) and
-# the QR routines built on it.
+# The paper's unit as torch int64 ops (bit-identical to `repro.core`), the
+# QR routines built on it, the baselines and the HUB primitive.
 from .formats import (FloatFormat, HALF, SINGLE, DOUBLE,
                       encode_ieee, decode_ieee, encode_hub, decode_hub,
                       pack_fields, unpack_fields, packed_is_zero)
 from .givens import GivensConfig, GivensUnit
-from .qrd import (qr_cordic, qr_cordic_pallas, qr_cordic_wavefront,
-                  qr_cordic_complex, givens_schedule, sameh_kuck_schedule)
+from .qrd import (QRDEngine, qr_cordic, qr_cordic_pallas, qr_blockfp_pallas,
+                  qr_cordic_wavefront, qr_blockfp_wavefront,
+                  qr_cordic_complex, qr_cordic_complex_pallas,
+                  qr_cordic_complex_wavefront, qr_givens_float, qr_jnp,
+                  qr_fixed, snr_db, givens_schedule, sameh_kuck_schedule)
+from .hub import hub_quantize, hub_error_bound
 from . import cordic, converters
 
 __all__ = [
@@ -13,7 +17,11 @@ __all__ = [
     "encode_ieee", "decode_ieee", "encode_hub", "decode_hub",
     "pack_fields", "unpack_fields", "packed_is_zero",
     "GivensConfig", "GivensUnit",
-    "qr_cordic", "qr_cordic_pallas", "qr_cordic_wavefront",
-    "qr_cordic_complex", "givens_schedule",
-    "sameh_kuck_schedule", "cordic", "converters",
+    "QRDEngine", "qr_cordic", "qr_cordic_pallas", "qr_blockfp_pallas",
+    "qr_cordic_wavefront", "qr_blockfp_wavefront",
+    "qr_cordic_complex", "qr_cordic_complex_pallas",
+    "qr_cordic_complex_wavefront", "qr_givens_float", "qr_jnp", "qr_fixed",
+    "snr_db", "givens_schedule", "sameh_kuck_schedule",
+    "hub_quantize", "hub_error_bound",
+    "cordic", "converters",
 ]

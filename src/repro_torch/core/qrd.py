@@ -27,25 +27,40 @@ three on the int32 block-FP fast path, bit-identical to each other:
   `qr_blockfp_wavefront` its wavefront
                       (`repro_torch.kernels.ops.givens_block_apply_wavefront`)
 
-and three on the complex datapath (the three-rotation decomposition on
+three on the complex datapath (the three-rotation decomposition on
 (re, im) lane pairs), bit-identical to each other: `qr_cordic_complex` (the
-host loop), `qr_cordic_complex_pallas` and `qr_cordic_complex_wavefront`.
+host loop), `qr_cordic_complex_pallas` and `qr_cordic_complex_wavefront`;
+and the three baselines the paper compares the unit with, which run no
+kernel of this package:
+
+  `qr_givens_float`   float Givens rotations on the same schedule, any
+                      float or complex dtype
+  `qr_jnp`            the LAPACK reference, ``torch.linalg.qr``
+  `qr_fixed`          the W-bit fixed-point rotator of [20]
+
+with the error metric `snr_db` and the legacy dataclass facade
+`QRDEngine` over `repro_torch.qrd.QRDEngine`.
 
 The names ``*_pallas`` are kept so configurations carry over between the
 two packages; on the GPU they are the CUDA kernels of ``kernels/csrc``.
 """
 from __future__ import annotations
 
+import dataclasses
 from functools import lru_cache
+from typing import Any
 
+import numpy as np
 import torch
 
-from .givens import GivensUnit
+from . import cordic
+from .givens import GivensConfig, GivensUnit
 
 __all__ = ["qr_cordic", "qr_cordic_pallas", "qr_cordic_panel",
            "qr_cordic_wavefront", "qr_blockfp_pallas", "qr_blockfp_panel",
            "qr_blockfp_wavefront", "qr_cordic_complex",
            "qr_cordic_complex_pallas", "qr_cordic_complex_wavefront",
+           "qr_givens_float", "qr_jnp", "qr_fixed", "QRDEngine", "snr_db",
            "givens_schedule", "sameh_kuck_schedule"]
 
 #: Bound on the host-side schedule memoization.
@@ -92,11 +107,12 @@ def _split_qr(out, m, n, compute_q):
 
 
 def _augment(A, compute_q):
-    """Append the identity columns: rows of e = n + m elements (or e = n)."""
+    """Append the identity columns, in A's dtype: rows of e = n + m
+    elements (or e = n)."""
     if not compute_q:
         return A
     m = A.shape[-2]
-    eye = torch.eye(m, dtype=torch.float64, device=A.device)
+    eye = torch.eye(m, dtype=A.dtype, device=A.device)
     return torch.cat([A, eye.expand(A.shape[:-1] + (m,))], dim=-1)
 
 
@@ -431,3 +447,211 @@ def qr_cordic_complex_wavefront(A, unit: GivensUnit, compute_q=True,
             P, cfg=unit.cfg, stages=_as_stages(m, n, stages), tile_b=tile_b,
             table_layout=table_layout)
     return _complex_qr(A, unit, compute_q, run)
+
+
+# --------------------------------------------------------------------------
+# Baselines: float Givens, the LAPACK reference, the fixed-point rotator
+# --------------------------------------------------------------------------
+def _torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch dtype, numpy dtype or dtype name."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return getattr(torch, np.dtype(dtype).name)
+
+
+def qr_givens_float(A, dtype=torch.float32, compute_q=True):
+    """Batched QR via float Givens rotations (same schedule as the unit).
+
+    The algorithmic baseline: the column-major schedule and augmented
+    identity of the unit, in plain ``dtype`` floating point.  Complex dtypes
+    use the conjugate rotation ``G = [[conj(a), conj(b)], [-b, a]] / r``
+    with ``r = sqrt(|a|^2 + |b|^2)``, which reduces to the real rotation on
+    real inputs.  float16 computes op by op in float16, as the JAX package
+    does.
+
+    Parameters
+    ----------
+    A : (..., m, n) tensor or array_like, cast to ``dtype`` on its device.
+    dtype : torch dtype, numpy dtype or name.
+    compute_q : bool.
+
+    Returns
+    -------
+    (Q, R) in ``dtype`` (Q is None when ``compute_q=False``); for complex
+    dtypes Q is the conjugate transpose of the accumulated rotations and
+    R's diagonal is real and non-negative.
+    """
+    dtype = _torch_dtype(dtype)
+    A = torch.as_tensor(A).to(dtype)
+    m, n = A.shape[-2], A.shape[-1]
+    W = _augment(A, True) if compute_q else A.clone()   # updated in place
+    for (k, j, col) in givens_schedule(m, n):
+        a = W[..., k, col]
+        b = W[..., j, col]
+        r = torch.sqrt(a.abs() ** 2 + b.abs() ** 2)
+        safe = r > 0
+        rs = torch.where(safe, r, 1.0).to(dtype)
+        c = torch.where(safe, a.conj() / rs, 1.0).to(dtype)
+        s = torch.where(safe, b.conj() / rs, 0.0).to(dtype)
+        rk = c[..., None] * W[..., k, :] + s[..., None] * W[..., j, :]
+        rj = (-s.conj()[..., None] * W[..., k, :]
+              + c.conj()[..., None] * W[..., j, :])
+        rj[..., col] = 0
+        rk[..., col] = r.to(dtype)
+        W[..., k, :] = rk
+        W[..., j, :] = rj
+    R = W[..., :n]
+    if not compute_q:
+        return None, R
+    return W[..., n:].transpose(-1, -2).conj().resolve_conj(), R
+
+
+def qr_jnp(A, dtype=torch.float32, compute_q=True):
+    """LAPACK-style reference (the JAX package's ``jnp.linalg.qr``).
+
+    A : (..., m, n); returns complete-mode ``(Q, R)`` from
+    ``torch.linalg.qr`` in ``dtype`` on A's device (LAPACK on the CPU,
+    cuSOLVER or MAGMA on the GPU), or ``(None, R)`` with
+    ``compute_q=False``.  float16 raises ``NotImplementedError``, as the
+    JAX package's LAPACK QR does: neither library has a half-precision QR,
+    and the JAX package does not widen.
+    """
+    dtype = _torch_dtype(dtype)
+    if dtype == torch.float16:
+        raise NotImplementedError("qr_jnp: LAPACK has no float16 QR "
+                                  "(jnp.linalg.qr refuses it too); use "
+                                  "float32 or 'givens_float'")
+    Q, R = torch.linalg.qr(torch.as_tensor(A).to(dtype), mode="complete")
+    return (Q if compute_q else None), R
+
+
+def qr_fixed(A, width=32, iters=27, scale_exp=0, compute_q=True):
+    """Batched QRD in pure fixed point (W-bit, F = width - 2 fraction bits).
+
+    The Fig. 11 baseline [20]: inputs scaled by 2^(F - scale_exp) and
+    quantized RNE to the integer grid, the whole decomposition in
+    int64-carried W-bit two's complement with CORDIC (`cordic.vectoring`,
+    `cordic.rotation`) and gain compensation (`cordic.fixmul`).  The scale
+    and the gain constant are the JAX package's: it forms ``2^k`` with
+    XLA's ``exp2``, not an exact power of two, and the port reads the same
+    constants from `repro_torch.kernels.ops._scale_table`, so its words
+    and floats are bit-equal to `repro.core.qrd.qr_fixed`.
+
+    A : (..., m, n); returns float64 ``(Q, R)`` on A's device (Q is None
+    when ``compute_q=False``).
+    """
+    from repro_torch.kernels.ops import _SCALE_K, _scale_table
+
+    A = torch.as_tensor(A).to(torch.float64)
+    m, n = A.shape[-2], A.shape[-1]
+    W = _augment(A, compute_q)
+    table = _scale_table()
+    scale = float(table[width - 2 - scale_exp + _SCALE_K])
+    X = torch.round(W * scale).to(torch.int64)   # RNE onto the grid
+    p = cordic.gain_shift(width + 2)
+    comp = int(np.rint(np.float64(1.0) / np.float64(cordic.GAIN_TABLE[iters])
+                       * table[p + _SCALE_K]))
+
+    def gain(v):
+        return cordic.fixmul(v, comp, p, round_nearest=True)
+
+    for (k, j, col) in givens_schedule(m, n):
+        xl, _, flip, sig = cordic.vectoring(X[..., k, col], X[..., j, col],
+                                            iters, hub=False)
+        xr, yr = cordic.rotation(X[..., k, col + 1:], X[..., j, col + 1:],
+                                 flip[..., None], sig[..., None], iters,
+                                 hub=False)
+        X[..., k, col] = gain(xl)
+        X[..., j, col] = 0
+        X[..., k, col + 1:] = gain(xr)
+        X[..., j, col + 1:] = gain(yr)
+    out = X.to(torch.float64) / scale
+    return _split_qr(out, m, n, compute_q)
+
+
+# --------------------------------------------------------------------------
+# Engine facade + error metric
+# --------------------------------------------------------------------------
+@dataclasses.dataclass
+class QRDEngine:
+    """Backend-selectable batched QRD: the legacy facade over
+    `repro_torch.qrd.QRDEngine` (the JAX package's `repro.core.QRDEngine`).
+
+    Every call rebuilds a `repro_torch.qrd.QRDConfig` from the (mutable)
+    fields, so a field changed between calls misses the built-callable
+    cache instead of returning stale results.  New code should use
+    `repro_torch.qrd.QRDEngine` directly.
+
+    Parameters
+    ----------
+    backend : str — any registered backend
+        (`repro_torch.qrd.available_backends()`).
+    givens_config : GivensConfig — unit parameters of the cordic family;
+        ``'blockfp_pallas'`` uses its ``hub`` flag and resolved depth.
+    schedule : ``'col'`` or ``'sameh_kuck'``.
+    fixed_width, fixed_iters, fixed_scale_exp : the ``'fixed'`` baseline.
+    device : where the engine runs: ``None`` is the GPU, ``"cpu"`` runs
+        the kernels' plain versions.
+
+    Call with ``engine(A, compute_q=...)``; returns ``(Q, R)``.
+    """
+
+    backend: str = "jnp"
+    givens_config: GivensConfig = dataclasses.field(default_factory=GivensConfig)
+    schedule: str = "col"
+    fixed_width: int = 32
+    fixed_iters: int = 27
+    fixed_scale_exp: int = 0
+    device: Any = None
+
+    def _to_config(self):
+        from repro_torch import qrd as _api
+        return _api.QRDConfig(backend=self.backend, schedule=self.schedule,
+                              givens=self.givens_config,
+                              fixed_width=self.fixed_width,
+                              fixed_iters=self.fixed_iters,
+                              fixed_scale_exp=self.fixed_scale_exp)
+
+    def __post_init__(self):
+        # fail at construction: bad backend or schedule names and invalid
+        # unit configurations should not surface deep inside a run
+        from repro_torch import qrd as _api
+        self._engine = _api.QRDEngine(self._to_config(), device=self.device)
+
+    @property
+    def _fn_cache(self):
+        """The underlying bounded built-callable LRU."""
+        return self._engine._fn_cache
+
+    def __call__(self, A, compute_q=True):
+        return self._engine._dispatch(A, compute_q, self._to_config())
+
+    def solve(self, A, b, return_residuals=False):
+        """Batched least squares — see `repro_torch.qrd.QRDEngine.solve`."""
+        eng = self._engine
+        eng.config = self._to_config()
+        return eng.solve(A, b, return_residuals=return_residuals)
+
+    def rls(self, n, lam=0.99, delta=1e-3, block=None):
+        """Streaming QRD-RLS state — see `repro_torch.qrd.QRDEngine.rls`."""
+        eng = self._engine
+        eng.config = self._to_config()
+        return eng.rls(n, lam=lam, delta=delta, block=block)
+
+
+def snr_db(A, Q, R):
+    """The paper's error metric: SNR of the reconstruction ``Q @ R``
+    against A, in dB, per matrix.
+
+    Computed in float64 on Q's device (A and R follow it); the caller takes
+    the mean over the batch (the paper reports the mean of 10,000
+    matrices).
+    """
+    Q = torch.as_tensor(Q)
+    A = torch.as_tensor(A).to(device=Q.device, dtype=torch.float64)
+    B = torch.matmul(Q.to(torch.float64),
+                     torch.as_tensor(R).to(device=Q.device,
+                                           dtype=torch.float64))
+    num = torch.sum(A * A, dim=(-2, -1))
+    den = torch.sum((A - B) ** 2, dim=(-2, -1))
+    return 10.0 * torch.log10(num / torch.clamp(den, min=1e-300))

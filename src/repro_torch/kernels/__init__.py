@@ -5,10 +5,14 @@
 #                    wavefront): launch wrappers, plain PyTorch versions,
 #                    launch counters
 #   cordic_givens.py the int32 block-FP CORDIC step, plain PyTorch (the
-#                    block-FP kernels' plain versions are built from it)
-#   ops.py           public wrappers (leading batch shape), panel loops,
-#                    stage tables, block-FP encode/decode, the RLS block
-#                    schedule
+#                    block-FP kernels' plain versions are built from it),
+#                    and the standalone rotator's kernels (vectoring,
+#                    rotation, fused): wrappers, plain versions, counters
+#   ops.py           public wrappers (leading batch shape), the rotator's
+#                    row API, panel loops, stage tables, block-FP
+#                    encode/decode, the RLS block schedule
+#   _launch.py       launch signatures, library handles, stream and error
+#                    checks shared by the wrappers
 from . import cordic_givens, ops, qrd_blocked
 
 __all__ = ["cordic_givens", "ops", "qrd_blocked"]

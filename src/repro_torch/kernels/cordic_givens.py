@@ -21,11 +21,25 @@ These functions are the plain versions of the block-FP CUDA kernels
 * `fused_rotate_pairs` — one Sameh–Kuck stage of the wavefront kernel
   (`qr_blockfp_wavefront_call`, ``csrc/wavefront.cu``).
 
+and the module holds the standalone rotator's three CUDA kernels
+(``csrc/rotator.cu``), which replace their namesakes of
+`repro.kernels.cordic_givens`, with their launch wrappers, launch counters
+and plain versions:
+
+* `vectoring_call`  — vectoring on (B,) lead pairs: the gain-compensated
+  pair and the control words (flip, sigma); plain `vectoring_reference`;
+* `rotation_call`   — (flip, sigma) replayed on (B, L) row pairs; plain
+  `rotation_reference` (`fused_replay`);
+* `fused_call`      — both on (B, L) rows, the lead at column 0; plain
+  `fused_reference` (`fused_rotate_block`).
+
+Each wrapper dispatches on the operands' device: CUDA tensors launch the
+kernel (or raise), CPU tensors run the plain version.
+
 The arithmetic follows the operands' integer type: on int32 tensors it
 wraps as XLA's int32 does (two's complement), on int64 tensors the same
 expressions run without wrapping, which is how the tests show whether a
-case left int32.  The B6 kernels of the JAX module (`vectoring_call`,
-`rotation_call`, `fused_call`) are ROADMAP B6 and not ported yet.
+case left int32.
 """
 from __future__ import annotations
 
@@ -34,12 +48,28 @@ import torch
 
 from repro_torch.core.cordic import GAIN_TABLE
 
+from . import _launch
+
 __all__ = ["comp_q30", "fused_rotate_block", "fused_rotate_ctrl",
-           "fused_replay", "fused_rotate_pairs", "MAX_ITERS"]
+           "fused_replay", "fused_rotate_pairs", "MAX_ITERS",
+           "vectoring_call", "vectoring_reference", "VECTORING_LAUNCHES",
+           "rotation_call", "rotation_reference", "ROTATION_LAUNCHES",
+           "fused_call", "fused_reference", "FUSED_LAUNCHES"]
 
 #: Deepest CORDIC the int32 datapath takes: sigma packs one bit per
 #: micro-rotation into an int32, and the shift counts stay below 31.
 MAX_ITERS = 30
+
+#: Launches of each rotator kernel in this process (comparisons included);
+#: callers reset them to 0 to count one run.
+VECTORING_LAUNCHES = 0
+ROTATION_LAUNCHES = 0
+FUSED_LAUNCHES = 0
+
+#: Threads a block of the rotator kernels, and rows a block of the fused
+#: kernel (``kThreads`` and ``kRows`` of ``csrc/rotator.cu``).
+_THREADS = 256
+_FUSED_ROWS = 256
 
 
 def comp_q30(iters: int) -> int:
@@ -177,3 +207,197 @@ def fused_replay(x, y, flip, sig, *, iters: int, hub: bool, comp: int):
         v = _microrotation(v, i, d[..., i:i + 1], hub)
     v = _gain_mul_q30(v, comp)
     return v[0], v[1]
+
+
+# ---------------------------------------------------------------------------
+# The standalone rotator (csrc/rotator.cu)
+# ---------------------------------------------------------------------------
+def vectoring_reference(x, y, *, iters: int, hub: bool):
+    """Plain PyTorch version of the vectoring kernel, on any device.
+
+    x, y : (B,) integer lead pairs.  Returns ``(xr, yr, flip, sig)``: the
+    gain-compensated vectored pair (``yr`` the residual, near 0) and the
+    control words, flip as 0/1, all in the operands' type.  The pair is the
+    lead replayed by its own control word, which is the vectoring result
+    bit for bit.
+    """
+    flip, sig = _vector(x, y, iters, hub)
+    flip = flip.to(x.dtype)
+    xr, yr = fused_replay(x[:, None], y[:, None], flip, sig, iters=iters,
+                          hub=hub, comp=comp_q30(iters))
+    return xr[:, 0], yr[:, 0], flip, sig
+
+
+def rotation_reference(x, y, flip, sig, *, iters: int, hub: bool):
+    """Plain PyTorch version of the rotation kernel, on any device: the
+    (B,) control words replayed on the (B, L) row pairs (`fused_replay`)."""
+    return fused_replay(x, y, flip, sig, iters=iters, hub=hub,
+                        comp=comp_q30(iters))
+
+
+def fused_reference(x, y, *, iters: int, hub: bool):
+    """Plain PyTorch version of the fused kernel, on any device: the (B, L)
+    row pairs through `fused_rotate_block`, the lead at column 0."""
+    if x.shape[-1] == 0:
+        return x.clone(), y.clone()
+    return fused_rotate_block(x, y, iters=iters, hub=hub,
+                              comp=comp_q30(iters))
+
+
+def _rotator_args(iters: int, hub: bool):
+    """(iters, hub, comp) as the rotator kernels take them."""
+    _check_iters(iters)
+    return int(iters), int(bool(hub)), comp_q30(iters)
+
+
+def _outputs(fn: str, x, out, plain=None):
+    """The output pair of a wrapper.  On the CPU, ``plain`` (the plain
+    version's pair) written into ``out`` when given, else ``plain`` itself.
+    On the card, ``out`` checked against ``x``, or two new tensors like
+    ``x``."""
+    if plain is not None:
+        if out is None:
+            return plain
+        for o, p in zip(out, plain):
+            o.copy_(p)
+        return out
+    if out is None:
+        return (torch.empty(x.shape, dtype=torch.int32, device=x.device),
+                torch.empty(x.shape, dtype=torch.int32, device=x.device))
+    _launch.check_operand(fn, x, *out, ndim=x.dim(), dtype=torch.int32)
+    return out
+
+
+def vectoring_call(x, y, *, iters: int, hub: bool, out=None):
+    """Vectoring on lead pairs: one CUDA launch.
+
+    Parameters
+    ----------
+    x, y : (B,) int32 — lead pairs of block-FP significands, any stride
+        (e.g. column 0 of a (B, L) row block).  On CPU tensors the plain
+        version runs instead of the kernel.
+    iters, hub : CORDIC depth (at most 30) and HUB or conventional
+        arithmetic.
+    out : pair of (B,) int32 tensors, optional — where the vectored pair is
+        written (any stride), e.g. column 0 of the rotated rows.
+
+    Returns
+    -------
+    (xr, yr, flip, sig) : the gain-compensated vectored pair (``out`` when
+    given) and the (B,) int32 control words.
+    """
+    global VECTORING_LAUNCHES
+    args = _rotator_args(iters, hub)
+    if _launch.check_operand("vectoring_call", x, y, ndim=1,
+                             dtype=torch.int32):
+        xr, yr, flip, sig = vectoring_reference(x, y, iters=iters, hub=hub)
+        return (*_outputs("vectoring_call", x, out, (xr, yr)), flip, sig)
+    xo, yo = _outputs("vectoring_call", x, out)
+    (B,) = x.shape
+    flip = torch.empty(B, dtype=torch.int32, device=x.device)
+    sig = torch.empty_like(flip)
+    if B == 0:
+        return xo, yo, flip, sig
+    err = _launch.lib("rotator").vectoring_launch(
+        x.data_ptr(), y.data_ptr(), xo.data_ptr(), yo.data_ptr(),
+        *(t.stride(0) for t in (x, y, xo, yo)), flip.data_ptr(),
+        sig.data_ptr(), B, *args, _launch.stream(x))
+    _launch.check_launch("rotator", err)
+    VECTORING_LAUNCHES += 1
+    return xo, yo, flip, sig
+
+
+def _threads_x(L: int) -> int:
+    """Threads along a row of the rotation kernel: the power of two at or
+    above L, at most `_THREADS`."""
+    return min(1 << max(L - 1, 0).bit_length(), _THREADS)
+
+
+def rotation_call(x, y, flip, sig, *, iters: int, hub: bool, out=None):
+    """Replay control words across row pairs: one CUDA launch.
+
+    Parameters
+    ----------
+    x, y : (B, L) int32 — row pairs of block-FP significands, any row
+        stride, unit column stride.  On CPU tensors the plain version runs
+        instead of the kernel.
+    flip, sig : (B,) int32 control words (`vectoring_call`), one per row
+        pair.
+    iters, hub : CORDIC depth (at most 30) and HUB or conventional
+        arithmetic.
+    out : pair of (B, L) int32 tensors, optional — where the rotated rows
+        are written (any row stride, unit column stride).
+
+    Returns
+    -------
+    (xr, yr) : the (B, L) gain-compensated rotated rows (``out`` when
+    given).  An empty operand (B = 0 or L = 0) launches nothing.
+    """
+    global ROTATION_LAUNCHES
+    args = _rotator_args(iters, hub)
+    if _launch.check_operand("rotation_call", x, y, ndim=2,
+                             dtype=torch.int32):
+        _launch.check_operand("rotation_call", flip, sig, ndim=1,
+                              dtype=torch.int32)
+        return _outputs("rotation_call", x, out,
+                        rotation_reference(x, y, flip, sig, iters=iters,
+                                           hub=hub))
+    B, L = x.shape
+    if (_launch.check_operand("rotation_call", flip, sig, ndim=1,
+                              dtype=torch.int32)
+            or flip.shape != (B,) or flip.device != x.device
+            or not (flip.is_contiguous() and sig.is_contiguous())):
+        raise ValueError(f"rotation_call: flip and sig must be contiguous "
+                         f"({B},) int32 tensors on {x.device}")
+    xo, yo = _outputs("rotation_call", x, out)
+    threads_x = _threads_x(L)
+    if -(-L // threads_x) > 65535:
+        raise ValueError(f"rotation_call: rows of {L} elements exceed the "
+                         f"kernel's grid ({65535 * threads_x} at most)")
+    if B == 0 or L == 0:
+        return xo, yo
+    err = _launch.lib("rotator").rotation_launch(
+        x.data_ptr(), y.data_ptr(), xo.data_ptr(), yo.data_ptr(),
+        *(t.stride(0) for t in (x, y, xo, yo)), flip.data_ptr(),
+        sig.data_ptr(), B, L, threads_x, *args, _launch.stream(x))
+    _launch.check_launch("rotator", err)
+    ROTATION_LAUNCHES += 1
+    return xo, yo
+
+
+def fused_call(x, y, *, iters: int, hub: bool):
+    """Vectoring on column 0 and its replay on the whole row pair, in one
+    pass: one CUDA launch.
+
+    Parameters
+    ----------
+    x, y : (B, L) int32 — row pairs, the lead pair at column 0, any row
+        stride, unit column stride.  On CPU tensors the plain version runs
+        instead of the kernel.
+    iters, hub : CORDIC depth (at most 30) and HUB or conventional
+        arithmetic.
+
+    Returns
+    -------
+    (xr, yr) : (B, L) int32 rotated rows, bit-identical to `vectoring_call`
+    on column 0 followed by `rotation_call` on the rest.  An empty operand
+    launches nothing.
+    """
+    global FUSED_LAUNCHES
+    args = _rotator_args(iters, hub)
+    if _launch.check_operand("fused_call", x, y, ndim=2, dtype=torch.int32):
+        return fused_reference(x, y, iters=iters, hub=hub)
+    B, L = x.shape
+    if _FUSED_ROWS * L >= 2 ** 31:
+        raise ValueError(f"fused_call: rows of {L} elements exceed the "
+                         f"kernel's int32 block index")
+    xo, yo = _outputs("fused_call", x, None)
+    if B == 0 or L == 0:
+        return xo, yo
+    err = _launch.lib("rotator").fused_launch(
+        x.data_ptr(), y.data_ptr(), xo.data_ptr(), yo.data_ptr(),
+        *(t.stride(0) for t in (x, y, xo, yo)), B, L, *args,
+        _launch.stream(x))
+    _launch.check_launch("rotator", err)
+    FUSED_LAUNCHES += 1
+    return xo, yo

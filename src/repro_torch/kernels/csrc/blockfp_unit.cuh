@@ -81,10 +81,11 @@ __device__ __forceinline__ void microrotation(i32& x, i32& y, int i, bool d_pos,
   y = yn;
 }
 
-// The lead pair's vectoring: flip on x < 0, then iters micro-rotations
-// driving y to 0, their directions packed into sig (bit i = d_pos of
-// micro-rotation i).
-__device__ __forceinline__ void vector_lead(i32 xl, i32 yl, const Params& u,
+// The lead pair's vectoring in place: flip on x < 0, then iters
+// micro-rotations driving y to 0, their directions packed into sig (bit i =
+// d_pos of micro-rotation i).  (xl, yl) become the vectored pair, before
+// the gain compensation.
+__device__ __forceinline__ void vector_pair(i32& xl, i32& yl, const Params& u,
                                             i32& flip, i32& sig) {
   flip = xl < 0;
   if (flip) {
@@ -97,6 +98,12 @@ __device__ __forceinline__ void vector_lead(i32 xl, i32 yl, const Params& u,
     microrotation(xl, yl, i, d_pos, u.hub);
     sig |= (i32)d_pos << i;
   }
+}
+
+// vector_pair for the control word alone.
+__device__ __forceinline__ void vector_lead(i32 xl, i32 yl, const Params& u,
+                                            i32& flip, i32& sig) {
+  vector_pair(xl, yl, u, flip, sig);
 }
 
 // fused_replay on one element pair: the control word (flip, sig) replayed,

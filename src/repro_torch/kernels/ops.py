@@ -1,9 +1,16 @@
 """Public wrappers over the CUDA kernels (torch port of the ported part of
 `repro.kernels.ops`).
 
-The kernels take one flat batch axis; these wrappers accept any leading
-batch shape and restore it.  Ragged batches need no padding here: the
-kernels mask the ragged edge of their last block.  Two datapaths:
+The QR kernels take one flat batch axis; these wrappers accept any
+leading batch shape and restore it.  Ragged batches need no padding here:
+the kernels mask the ragged edge of their last block.  The standalone
+rotator's row API takes (B,) lead pairs and (B, L) row pairs, as the JAX
+package's does: `vectoring_fixed`, `rotation_fixed`,
+`givens_rotate_rows_fixed` and `givens_rotate_rows_fused` (kernels of
+``csrc/rotator.cu``; no padding to the TPU's (8, 128) tile).  The entry
+points that take array_like operands run them on the GPU (the row API
+unless the caller passes ``device="cpu"``); a tensor stays on its device
+(`_operands`).  The QR wrappers run two datapaths:
 
 * packed FP words (int64), bit-exact to the unit: `qr_packed`,
   `qr_packed_panel`, the Sameh–Kuck wavefront `qr_packed_wavefront`, and
@@ -29,12 +36,118 @@ import torch
 
 from repro_torch.core.qrd import SCHEDULE_CACHE_SIZE
 
+from . import cordic_givens as cg
 from . import qrd_blocked as qb
+from ._launch import resolve_device
 
-__all__ = ["qr_packed", "qr_packed_wavefront", "qr_packed_complex",
+__all__ = ["vectoring_fixed", "rotation_fixed", "givens_rotate_rows_fixed",
+           "givens_rotate_rows_fused", "qr_packed", "qr_packed_wavefront", "qr_packed_complex",
            "qr_packed_complex_wavefront", "panel_steps", "qr_packed_panel",
            "givens_block_apply", "givens_block_apply_wavefront",
            "givens_block_apply_panel", "rls_block_steps"]
+
+
+def _operands(dtype, device, *vs):
+    """``vs`` as ``dtype`` tensors, where the entry points run them.
+
+    With ``device=None`` a tensor stays on its device (a CUDA tensor runs
+    the kernel, a CPU tensor its plain version) and anything else (numpy
+    arrays, lists) joins the first tensor operand, or goes to the GPU when
+    there is none (`_launch.resolve_device`: it raises when CUDA is
+    unavailable and names ``device='cpu'``).  A given ``device`` takes
+    every operand there.  Integers wrap to int32 as
+    ``.astype(jnp.int32)`` does.
+    """
+    if device is None:
+        on = [v.device for v in vs if isinstance(v, torch.Tensor)]
+        device = on[0] if on else resolve_device()
+        vs = [v if isinstance(v, torch.Tensor)
+              else torch.as_tensor(v, device=device) for v in vs]
+    else:
+        vs = [torch.as_tensor(v, device=device) for v in vs]
+    return tuple(v if v.dtype == dtype else v.to(dtype) for v in vs)
+
+
+def _rows(v):
+    """int32 rows with unit column stride (the kernels' layout)."""
+    return v if v.dim() != 2 or v.stride(-1) == 1 else v.contiguous()
+
+
+def vectoring_fixed(x, y, *, iters=24, hub=False, device=None):
+    """Vectoring kernel: compute per-row CORDIC control words.
+
+    Parameters
+    ----------
+    x, y : (B,) int32 tensors or array_like
+        Lead pairs as block-FP significands (w = iters + 2 <= 30 bits;
+        callers align exponents beforehand).  Other integer types are cast
+        to int32 with wrap-around.
+    iters, hub : CORDIC depth and HUB arithmetic flag.
+    device : str or torch.device, optional
+        Where to run: tensors stay on their device and other operands go to
+        the GPU unless this says otherwise (``"cpu"`` runs the plain
+        version); see `_operands`.
+
+    Returns
+    -------
+    (xr, yr, flip, sigma) : four (B,) int32 tensors on the operands' device
+        The gain-compensated rotated pair (``yr`` near 0), the coarse
+        pi-flip bit, and the packed sigma direction bits (bit i == 1 means
+        d_i = +1).
+    """
+    x, y = _operands(torch.int32, device, x, y)
+    return cg.vectoring_call(x, y, iters=iters, hub=hub)
+
+
+def rotation_fixed(x, y, flip, sigma, *, iters=24, hub=False, device=None):
+    """Rotation kernel: replay stored control words across full rows.
+
+    Parameters
+    ----------
+    x, y : (B, L) int32 tensors or array_like — row elements as block-FP
+        significands.
+    flip, sigma : (B,) int32 — per-row control words from
+        `vectoring_fixed`.
+    device : where to run, as in `vectoring_fixed`.
+
+    Returns
+    -------
+    (xr, yr) : (B, L) int32 gain-compensated rotated rows.
+    """
+    x, y, flip, sigma = _operands(torch.int32, device, x, y, flip, sigma)
+    return cg.rotation_call(_rows(x), _rows(y), flip.contiguous(),
+                            sigma.contiguous(), iters=iters, hub=hub)
+
+
+def givens_rotate_rows_fixed(x_rows, y_rows, *, iters=24, hub=False,
+                             device=None):
+    """Full fixed-point Givens rotation of B row pairs of length L.
+
+    x_rows, y_rows : (B, L) int32 block-FP significands (element 0 is the
+    lead pair), tensors or array_like; ``device`` as in `vectoring_fixed`.
+    Vectoring on column 0 and rotation of columns 1: write straight into
+    one (B, L) output pair (two launches, no concatenation).  Returns the
+    rotated rows; ``y[:, 0]`` is the zeroed entry's residual, kept as
+    computed (callers force it to 0 where they need the structural zero).
+    """
+    x, y = map(_rows, _operands(torch.int32, device, x_rows, y_rows))
+    xo = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    yo = torch.empty_like(xo)
+    _, _, flip, sig = cg.vectoring_call(x[:, 0], y[:, 0], iters=iters,
+                                        hub=hub, out=(xo[:, 0], yo[:, 0]))
+    cg.rotation_call(x[:, 1:], y[:, 1:], flip, sig, iters=iters, hub=hub,
+                     out=(xo[:, 1:], yo[:, 1:]))
+    return xo, yo
+
+
+def givens_rotate_rows_fused(x_rows, y_rows, *, iters=24, hub=False,
+                             device=None):
+    """Fused single-pass variant: vectoring and rotation in one launch,
+    each element read once and written once.  Bit-identical to
+    `givens_rotate_rows_fixed` (the rotation of the lead pair by its own
+    sigma is the vectoring result); operands and ``device`` as there."""
+    x, y = map(_rows, _operands(torch.int32, device, x_rows, y_rows))
+    return cg.fused_call(x, y, iters=iters, hub=hub)
 
 
 @lru_cache(maxsize=SCHEDULE_CACHE_SIZE)
@@ -353,9 +466,10 @@ def givens_block_apply(W, steps, *, iters=24, hub=True, frac=24,
 
     Parameters
     ----------
-    W : (..., m, e) float tensor
+    W : (..., m, e) float tensor or array_like
         Working matrices (``[A | I]`` for a QRD, or ``[R | z]`` over new
-        rows for an RLS block update); any leading batch shape.
+        rows for an RLS block update); any leading batch shape.  A tensor
+        runs on its device, anything else on the GPU (`_operands`).
     steps : tuple[(int, int, int), ...] — ``(pivot_row, target_row, col)``.
     iters, hub : CORDIC depth (at most 30) and HUB arithmetic flag.
     frac : int
@@ -368,7 +482,7 @@ def givens_block_apply(W, steps, *, iters=24, hub=True, frac=24,
     -------
     (..., m, e) float64 — the rotated working matrices.
     """
-    W = torch.as_tensor(W, dtype=torch.float64)
+    (W,) = _operands(torch.float64, None, W)
     batch = W.shape[:-2]
     m, e = W.shape[-2:]
     X, ex = _blockfp_encode(W.reshape((-1, m, e)), frac)
@@ -392,7 +506,7 @@ def givens_block_apply_wavefront(W, stages, *, iters=24, hub=True, frac=24,
     (..., m, e) float64 — bit-identical to `givens_block_apply` on the
     flattened stage schedule.
     """
-    W = torch.as_tensor(W, dtype=torch.float64)
+    (W,) = _operands(torch.float64, None, W)
     batch = W.shape[:-2]
     m, e = W.shape[-2:]
     piv, tgt, col = _stage_tables(stages, m)
@@ -423,7 +537,7 @@ def givens_block_apply_panel(W, *, n_cols, iters=24, hub=True, frac=24,
     -------
     (..., m, e) float64 — the triangularized working matrices.
     """
-    W = torch.as_tensor(W, dtype=torch.float64)
+    (W,) = _operands(torch.float64, None, W)
     batch = W.shape[:-2]
     m, e = W.shape[-2:]
     X, ex = _blockfp_encode(W.reshape((-1, m, e)), frac)

@@ -43,7 +43,6 @@ kernel (or raises), a CPU tensor runs the plain version.
 """
 from __future__ import annotations
 
-import ctypes
 from functools import lru_cache
 
 import numpy as np
@@ -53,8 +52,11 @@ from repro_torch.core import cordic
 from repro_torch.core.givens import GivensConfig, GivensUnit
 from repro_torch.core.qrd import SCHEDULE_CACHE_SIZE
 
-from . import _build
 from . import cordic_givens as cg
+from ._launch import check_launch as _check_launch
+from ._launch import check_operand as _check_operand
+from ._launch import lib as _lib
+from ._launch import stream as _stream
 
 __all__ = ["qr_packed_call", "qr_packed_reference", "QR_PACKED_LAUNCHES",
            "panel_factor_packed_call", "panel_factor_packed_reference",
@@ -179,85 +181,9 @@ def kernel_params(cfg: GivensConfig) -> dict:
                 comp=cordic.gain_comp_constant(cfg.resolved_iters(), p), p=p)
 
 
-_C_INT, _C_LL, _C_PTR = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-
-#: ctypes types of `kernel_params`, in the order every launch takes them,
-#: followed by the stream.
-_UNIT_ARGTYPES = [_C_INT] * 2 + [_C_LL] * 2 + [_C_INT] * 6 + [_C_LL, _C_INT,
-                                                               _C_PTR]
-
-
 @lru_cache(maxsize=SCHEDULE_CACHE_SIZE)
 def _unit_args(cfg: GivensConfig):
     return tuple(kernel_params(cfg).values())
-
-
-#: The launch functions of each source: their C argument types, before the
-#: trailing unit arguments.
-_SIGNATURES = {
-    "qr_packed_launch": [_C_PTR] * 3 + [_C_INT] * 7 + _UNIT_ARGTYPES,
-    "panel_factor_launch": ([_C_PTR, _C_LL, _C_LL] + [_C_INT] * 3
-                            + [_C_PTR] * 3 + [_C_INT] + [_C_PTR] * 2
-                            + [_C_INT] * 2 + _UNIT_ARGTYPES),
-    "panel_apply_launch": ([_C_PTR, _C_LL, _C_LL] + [_C_INT] * 2
-                           + [_C_PTR] * 2 + [_C_INT] + [_C_PTR] * 2
-                           + [_C_INT] + _UNIT_ARGTYPES),
-    # block-FP launches end in (iters, hub, comp, stream)
-    "qr_blockfp_launch": [_C_PTR] * 3 + [_C_INT] * 9 + [_C_PTR],
-    "panel_factor_blockfp_launch": ([_C_PTR, _C_LL, _C_LL] + [_C_INT] * 3
-                                    + [_C_PTR] * 3 + [_C_INT] + [_C_PTR] * 2
-                                    + [_C_INT] * 5 + [_C_PTR]),
-    "panel_apply_blockfp_launch": ([_C_PTR, _C_LL, _C_LL] + [_C_INT] * 2
-                                   + [_C_PTR] * 2 + [_C_INT] + [_C_PTR] * 2
-                                   + [_C_INT] * 4 + [_C_PTR]),
-    # (in, out, tables, B, m, e, S, P, tile_b, threads_x[, device_tile])
-    "qr_packed_wavefront_launch": [_C_PTR] * 3 + [_C_INT] * 8 + _UNIT_ARGTYPES,
-    "qr_blockfp_wavefront_launch": [_C_PTR] * 3 + [_C_INT] * 10 + [_C_PTR],
-    # (in, out, steps, B, m, e, S, tile_b, threads_x, device_tile)
-    "qr_packed_complex_launch": [_C_PTR] * 3 + [_C_INT] * 7 + _UNIT_ARGTYPES,
-    "qr_packed_complex_wavefront_launch": ([_C_PTR] * 3 + [_C_INT] * 8
-                                           + _UNIT_ARGTYPES),
-}
-
-
-@lru_cache(maxsize=None)
-def _lib(name: str):
-    """The ctypes handle of ``csrc/<name>.cu`` with its launch signatures."""
-    lib = _build.load(name)
-    for fn, argtypes in _SIGNATURES.items():
-        if hasattr(lib, fn):
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = _C_INT
-    err_string = getattr(lib, f"{name}_error_string")
-    err_string.argtypes = [_C_INT]
-    err_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _stream(t) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _check_launch(name: str, err: int):
-    if err != 0:
-        msg = getattr(_lib(name), f"{name}_error_string")(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
-                           f"({msg})")
-
-
-def _check_operand(fn: str, P, ndim: int = 3, dtype=torch.int64):
-    """True for a CPU tensor (run the plain version); raises on anything
-    but a CUDA tensor of ``dtype`` and ``ndim`` dims with unit column
-    stride."""
-    if P.device.type == "cpu":
-        return True
-    if P.device.type != "cuda":
-        raise ValueError(f"{fn} runs on CUDA or CPU tensors, got {P.device}")
-    if P.dtype != dtype or P.dim() != ndim or P.stride(-1) != 1:
-        raise ValueError(f"{fn}: expected a {ndim}-d {dtype} tensor with unit "
-                         f"column stride, got {P.dtype} {tuple(P.shape)} "
-                         f"strides {P.stride()}")
-    return False
 
 
 def _threads_x(e: int) -> int:

@@ -2,9 +2,10 @@
 
 * `QRDConfig` — one config for backend, schedule and unit parameters; its
   JSON round-trips with `repro.qrd.QRDConfig`;
-* `register_backend` / `list_backends` — the backend registry (the ported
-  built-ins ``'cordic'``, ``'cordic_pallas'`` and ``'blockfp_pallas'`` are
-  entries like any third-party backend);
+* `register_backend` / `list_backends` — the backend registry (the six
+  built-ins ``'jnp'``, ``'givens_float'``, ``'cordic'``,
+  ``'cordic_pallas'``, ``'blockfp_pallas'`` and ``'fixed'`` are entries
+  like any third-party backend);
 * `QRDEngine` — registry-dispatched decomposition plus ``solve()`` and
   ``rls()``, on the GPU by default;
 * `RLSState` / `validate_lam` — streaming QRD-RLS (real dtypes);

@@ -1,8 +1,12 @@
 """Built-in backend registrations (torch port of `repro.qrd.backends`).
 
-Three of the JAX package's six built-ins are ported, with the same
-capability records and routing:
+The JAX package's six built-ins, with the same capability records and
+routing:
 
+  'jnp'             the LAPACK reference, ``torch.linalg.qr`` in the
+                    config's dtype (schedule-agnostic)
+  'givens_float'    float Givens rotations, column-major schedule, any
+                    float or complex dtype
   'cordic'          the paper's unit, host loop (the kernels' plain
                     versions); ``schedule='sameh_kuck'`` takes the flattened
                     stage order, complex operands the three-rotation loop
@@ -12,10 +16,11 @@ capability records and routing:
                     or wavefront kernel
   'blockfp_pallas'  the int32 block-FP fast path on its flat or wavefront
                     CUDA kernel (real dtypes only)
+  'fixed'           the 32-bit fixed-point rotator of [20]
+                    (schedule-agnostic)
 
-'jnp', 'givens_float' and 'fixed' are ROADMAP A2 and not registered yet:
-asking for one raises the registry's unknown-backend error.  Importing this module (``repro_torch.qrd`` does) populates the
-registry.
+The three baselines run no kernel of this package.  Importing this module
+(``repro_torch.qrd`` does) populates the registry.
 """
 from __future__ import annotations
 
@@ -33,6 +38,15 @@ def _flat_steps(config, m, n):
     if config.schedule == "sameh_kuck":
         return tuple(s for st in _q.sameh_kuck_schedule(m, n) for s in st)
     return None
+
+
+def _build_jnp(config, m, n, compute_q):
+    return lambda A: _q.qr_jnp(A, config.dtype, compute_q=compute_q)
+
+
+def _build_givens_float(config, m, n, compute_q):
+    return lambda A: _q.qr_givens_float(A, dtype=config.dtype,
+                                        compute_q=compute_q)
 
 
 def _build_cordic(config, m, n, compute_q):
@@ -76,9 +90,26 @@ def _build_blockfp_pallas(config, m, n, compute_q):
                                           hub=hub, frac=frac, tile_b=tile_b)
 
 
+def _build_fixed(config, m, n, compute_q):
+    return lambda A: _q.qr_fixed(A, config.fixed_width, config.fixed_iters,
+                                 config.fixed_scale_exp, compute_q=compute_q)
+
+
 def register_builtin_backends(overwrite=False):
-    """Populate the registry with the ported built-in backends (idempotent)."""
+    """Populate the registry with the six built-in backends (idempotent)."""
     entries = (
+        ("jnp", _build_jnp, BackendCapabilities(
+            bit_exact=False, wavefront=False, sharding=False,
+            dtypes=("float16", "float32", "float64",
+                    "complex64", "complex128"),
+            description="jnp.linalg.qr Householder reference "
+                        "(schedule-agnostic; 'sameh_kuck' degrades to it)")),
+        ("givens_float", _build_givens_float, BackendCapabilities(
+            bit_exact=False, wavefront=False, sharding=False,
+            dtypes=("float16", "float32", "float64",
+                    "complex64", "complex128"),
+            description="float Givens baseline, column-major schedule "
+                        "(complex via conjugate rotations)")),
         ("cordic", _build_cordic, BackendCapabilities(
             bit_exact=True, wavefront=False, sharding=True,
             dtypes=("float64", "complex128"),
@@ -95,6 +126,10 @@ def register_builtin_backends(overwrite=False):
             bit_exact=False, wavefront=True, sharding=True,
             max_shape=(128, 128), supports_tiling=True,
             description="int32 block-FP blocked kernel (fast TPU path)")),
+        ("fixed", _build_fixed, BackendCapabilities(
+            bit_exact=False, wavefront=False, sharding=False,
+            description="32-bit fixed-point rotator of [20] "
+                        "(Fig. 11 baseline; schedule-agnostic)")),
     )
     registered = available_backends()
     for name, builder, caps in entries:

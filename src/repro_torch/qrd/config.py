@@ -2,10 +2,9 @@
 
 The fields, their defaults and the JSON form are those of the JAX package,
 so ``QRDConfig.from_json(other.to_json())`` carries a configuration between
-the two packages unchanged.  Fields whose datapath is not ported yet stay
-for that round-trip: ``interpret`` (the port has no interpret mode: a
-kernel runs on the GPU, its plain version on the CPU), the fixed-point
-knobs and ``mesh``.
+the two packages unchanged.  Two fields stay for that round-trip only:
+``interpret`` (the port has no interpret mode: a kernel runs on the GPU,
+its plain version on the CPU) and ``mesh`` (not ported yet).
 The device is not part of the configuration: it belongs to the engine.
 """
 from __future__ import annotations

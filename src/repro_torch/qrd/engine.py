@@ -23,22 +23,12 @@ from collections import OrderedDict
 
 import torch
 
+from repro_torch.kernels._launch import resolve_device
+
 from .config import QRDConfig, _dtype_name
 from .solve import lstsq_from_triangular
 
 __all__ = ["QRDEngine"]
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` -> the GPU, which must exist; anything else as given."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "the port runs on the GPU by default and no CUDA device is "
-                "available; pass device='cpu' to run the kernels' plain "
-                "PyTorch versions on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 class QRDEngine:
@@ -125,11 +115,15 @@ class QRDEngine:
                 config = config.replace(dtype=_dtype_name(A.dtype))
         return A, config
 
-    def _dispatch(self, A, compute_q):
+    def _dispatch(self, A, compute_q, config: QRDConfig | None = None):
         """Registry dispatch with the bounded built-callable LRU; the
         route (flat, panel or tsqr) comes from
-        `repro_torch.qrd.tiled.resolve_route`."""
-        A, config = self._validate_operand(A, self.config)
+        `repro_torch.qrd.tiled.resolve_route`.  ``config`` defaults to the
+        engine's own; the legacy facade (`repro_torch.core.QRDEngine`)
+        passes one rebuilt from its mutable fields."""
+        if config is None:
+            config = self.config
+        A, config = self._validate_operand(A, config)
         if A.dim() < 2:
             raise ValueError(f"expected (..., m, n) operand, got {tuple(A.shape)}")
         m, n = A.shape[-2], A.shape[-1]

@@ -13,8 +13,8 @@ Builder contract
 * ``m, n``     : static matrix shape (trailing two axes of the operand);
 * ``compute_q``: whether the returned callable must produce Q.
 
-The returned callable maps a ``(..., m, n)`` float64 tensor to ``(Q, R)``
-on the tensor's device, with ``Q is None`` when ``compute_q=False``.  The
+The returned callable maps a ``(..., m, n)`` tensor (the engine's validated
+operand) to ``(Q, R)`` on the tensor's device, with ``Q is None`` when ``compute_q=False``.  The
 engine memoizes it per ``(m, n, compute_q, config)`` in a bounded LRU.
 """
 from __future__ import annotations

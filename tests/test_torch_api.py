@@ -189,9 +189,17 @@ def test_unported_paths_raise():
                          device="cpu")(eye)
     for want, got in zip(want, got):
         _bits_equal(want, got)
+    # the baselines are ported (ROADMAP A2): the JAX package's Q and R,
+    # 'fixed' to the bit, the float baselines within float64 rounding
     for name in ("jnp", "givens_float", "fixed"):
-        with pytest.raises(ValueError, match="unknown backend"):
-            tapi.QRDEngine(backend=name, device="cpu")
+        got = tapi.QRDEngine(backend=name, dtype="float64", device="cpu")(eye)
+        want = japi.QRDEngine(backend=name, dtype="float64")(eye)
+        for w, g in zip(want, got):
+            if name == "fixed":
+                _bits_equal(w, g)
+            else:
+                np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                           rtol=0, atol=1e-12)
 
 
 def test_host_loop_takes_the_flattened_sameh_kuck_order():
@@ -239,6 +247,8 @@ def test_port_imports_neither_jax_nor_repro():
         f"sys.path[:0] = [{os.path.join(REPO, 'src')!r}, {REPO!r}]\n"
         "import repro_torch, repro_torch.core, repro_torch.kernels\n"
         "import repro_torch.qrd, chip_smoke\n"
+        f"sys.path.insert(0, {os.path.join(REPO, 'examples')!r})\n"
+        "import torch_quickstart\n"
         "bad = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
         "print('clean')\n")

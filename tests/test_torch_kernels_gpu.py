@@ -1,7 +1,7 @@
 """The CUDA kernels of `repro_torch` (the flat kernel, the panel factor and
 apply kernels of the packed lane, their three block-FP twins, the two
-wavefront kernels and the two complex kernels) against their plain PyTorch
-versions, on the GPU.
+wavefront kernels, the two complex kernels and the standalone rotator's
+three) against their plain PyTorch versions, on the GPU.
 
 Marked ``gpu``: the kernels have no CPU or interpret mode, so these tests
 skip on a machine without CUDA (the `cuda` fixture decides, at run time).
@@ -20,6 +20,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 
 from repro_torch.core.qrd import givens_schedule  # noqa: E402
+from repro_torch.kernels import cordic_givens as cg  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import qrd_blocked as qb  # noqa: E402
 from repro_torch.qrd import QRDEngine  # noqa: E402
@@ -396,3 +397,82 @@ def test_wavefront_and_complex_engines_on_gpu_equal_cpu(cuda):
         Qc, Rc = QRDEngine(backend=backend, givens=g, device="cpu", **kw)(X)
         assert Qg.device.type == "cuda"
         assert torch.equal(Qg.cpu(), Qc) and torch.equal(Rg.cpu(), Rc)
+
+
+def _rotator_launches():
+    return (cg.VECTORING_LAUNCHES, cg.ROTATION_LAUNCHES, cg.FUSED_LAUNCHES)
+
+
+@pytest.mark.parametrize("hub,iters", [(True, 24), (False, 30), (True, 8)])
+def test_rotator_kernels_bit_equal_to_plain_versions(cuda, hub, iters):
+    """B6a, B6b and B6c against their plain versions (and the fixed row API
+    against the fused one), random and edge words, ragged shapes."""
+    rng = np.random.default_rng(iters)
+    before = _rotator_launches()
+    for B, W in ((1, 2), (7, 5), (33, 130), (257, 9), (4099, 3)):
+        for edge in (False, True):
+            X = chip_smoke.rotator_rows(B, W, rng, cuda, edge)
+            chip_smoke.check_rotator(X[0], X[1], dict(iters=iters, hub=hub),
+                                     f"B={B} W={W} edge={edge}")
+    torch.cuda.synchronize()
+    # per case: vectoring 2 (alone and in the fixed API), rotation 2, fused 1
+    assert tuple(b + n for b, n in zip(before, (20, 20, 10))) == \
+        _rotator_launches()
+
+
+def test_rotator_empty_operands(cuda):
+    """B = 0 launches nothing; rows of one element launch the vectoring
+    kernel and no rotation (its operand is (B, 0))."""
+    kw = dict(iters=24, hub=True)
+    X = chip_smoke.rotator_rows(0, 4, np.random.default_rng(0), cuda)
+    before = _rotator_launches()
+    a = ops.givens_rotate_rows_fixed(X[0], X[1], **kw)
+    b = ops.givens_rotate_rows_fused(X[0], X[1], **kw)
+    assert _rotator_launches() == before
+    assert a[0].shape == b[0].shape == (0, 4)
+    X = chip_smoke.rotator_rows(9, 1, np.random.default_rng(1), cuda)
+    a = ops.givens_rotate_rows_fixed(X[0], X[1], **kw)
+    b = ops.givens_rotate_rows_fused(X[0], X[1], **kw)
+    torch.cuda.synchronize()
+    assert _rotator_launches() == (before[0] + 1, before[1], before[2] + 1)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+    chip_smoke.compare("rows of one element", a,
+                       cg.fused_reference(X[0], X[1], **kw))
+
+
+def test_rotator_row_api_on_gpu_equals_cpu(cuda):
+    """The row API on the card (int64 operands wrapped to int32, rows with
+    a non-unit column stride made contiguous) equals it on the CPU."""
+    rng = np.random.default_rng(5)
+    X = rng.integers(-2 ** 33, 2 ** 33, size=(2, 40, 17))
+    kw = dict(iters=28, hub=False)
+    for fn in (ops.givens_rotate_rows_fixed, ops.givens_rotate_rows_fused):
+        got = fn(torch.tensor(X[0], device=cuda), torch.tensor(X[1], device=cuda),
+                 **kw)
+        want = fn(torch.tensor(X[0]), torch.tensor(X[1]), **kw)
+        for g, w in zip(got, want):
+            assert g.device.type == "cuda" and torch.equal(g.cpu(), w)
+        # column-major rows: (40, 17) views with strides (1, 40)
+        T = torch.tensor(X.transpose(0, 2, 1).astype(np.int32), device=cuda)
+        got = fn(T[0].transpose(0, 1), T[1].transpose(0, 1), **kw)
+        for g, w in zip(got, fn(torch.tensor(X[0]), torch.tensor(X[1]), **kw)):
+            assert torch.equal(g.cpu(), w)
+
+
+def test_rotator_row_api_puts_numpy_operands_on_the_card(cuda):
+    """numpy operands run on the card by default and launch the kernels;
+    device='cpu' runs the plain versions, with the same words."""
+    X = np.random.default_rng(6).integers(-2 ** 25, 2 ** 25, size=(2, 33, 9))
+    kw = dict(iters=24, hub=True)
+    for fn, launches in ((ops.givens_rotate_rows_fixed, (1, 1, 0)),
+                         (ops.givens_rotate_rows_fused, (0, 0, 1))):
+        before = _rotator_launches()
+        got = fn(X[0], X[1], **kw)
+        torch.cuda.synchronize()
+        assert _rotator_launches() == tuple(
+            b + n for b, n in zip(before, launches))
+        want = fn(X[0], X[1], device="cpu", **kw)
+        for g, w in zip(got, want):
+            assert g.device.type == "cuda" and w.device.type == "cpu"
+            assert torch.equal(g.cpu(), w)
