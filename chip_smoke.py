@@ -12,9 +12,12 @@ at full width — flat (8192 x 32 x 32), panel (1024 x 64 x 64) and TSQR
 (``engine.rls``), then the Sameh–Kuck wavefront of both lanes
 (``schedule='sameh_kuck'``) and the complex datapath (``dtype=
 'complex128'``, both schedules, and the MIMO detector's 4 x 4 solve), then
-the standalone rotator's row API (``givens_rotate_rows_fixed`` and
-``_fused``) at 32 Mi elements, the three baselines (``jnp``,
-``givens_float``, ``fixed``) and ``examples/torch_quickstart.py``,
+the dual-int32 lane route of the packed words (``ops.qr_packed`` and
+``ops.qr_packed_wavefront`` with ``lanes=True``, against the engine's
+int64 route), the standalone rotator's row API
+(``givens_rotate_rows_fixed`` and ``_fused``) at 32 Mi elements, the three
+baselines (``jnp``, ``givens_float``, ``fixed``) and
+``examples/torch_quickstart.py``,
 checks the results, times the kernels with CUDA events, and prints one
 JSON line describing each kernel followed by a final ``{"ok": true,
 "device": ...}`` line.  Any failed phase exits non-zero.
@@ -40,6 +43,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 from repro_torch.core.formats import HALF, SINGLE, pack_fields, packed_is_zero  # noqa: E402
 from repro_torch.core.givens import GivensConfig, GivensUnit  # noqa: E402
 from repro_torch.core.qrd import givens_schedule, sameh_kuck_schedule  # noqa: E402
+from repro_torch.core.qrd import _split_qr as split_qr  # noqa: E402
 from repro_torch.core.qrd import snr_db as port_snr_db  # noqa: E402
 from repro_torch.core.qrd import (qr_blockfp_pallas, qr_cordic_complex_pallas,  # noqa: E402
                                   qr_cordic_pallas)
@@ -92,6 +96,9 @@ COUNTERS = {"qr_packed": (qb, "QR_PACKED_LAUNCHES"),
             "qr_packed_complex": (qb, "QR_PACKED_COMPLEX_LAUNCHES"),
             "qr_packed_complex_wavefront": (
                 qb, "QR_PACKED_COMPLEX_WAVEFRONT_LAUNCHES"),
+            "qr_packed_lanes": (qb, "QR_PACKED_LANES_LAUNCHES"),
+            "qr_packed_lanes_wavefront": (
+                qb, "QR_PACKED_LANES_WAVEFRONT_LAUNCHES"),
             "vectoring": (cg, "VECTORING_LAUNCHES"),
             "rotation": (cg, "ROTATION_LAUNCHES"),
             "fused": (cg, "FUSED_LAUNCHES")}
@@ -1352,25 +1359,29 @@ def lane_words(lane, A):
         decode=lambda X: X.to(torch.float64))
 
 
-def kernel_pair_timing(what, X, first, second, repeats=5):
+def kernel_pair_timing(what, X, first, second, repeats=5, Y=None,
+                       as_second=None):
     """Two kernels on the same words, warm, each timed with CUDA events
     (median of ``repeats``), in turns: first, second, second, first.
-    Their outputs must be bit-equal.  Returns both times."""
+    Their outputs must be bit-equal.  Returns both times.  ``Y`` is the
+    second's operand when it takes the words in another form (default X),
+    and ``as_second`` brings the first's output to that form."""
+    Y = X if Y is None else Y
     first(X)
-    second(X)
+    second(Y)
     t1, out1 = _event_ms(lambda: first(X), repeats)
-    t2, out2 = _event_ms(lambda: second(X), repeats)
-    t2b, _ = _event_ms(lambda: second(X), repeats)
+    t2, out2 = _event_ms(lambda: second(Y), repeats)
+    t2b, _ = _event_ms(lambda: second(Y), repeats)
     t1b, _ = _event_ms(lambda: first(X), repeats)
-    compare(what, out1, out2)
+    compare(what, out1 if as_second is None else as_second(out1), out2)
     return statistics.median([t1, t1b]), statistics.median([t2, t2b])
 
 
-def plain_timing(what, kernel, plain, X, decode):
-    """One launch of a plain version at `PLAIN_BATCH` matrices beside the
+def plain_timing(what, kernel, plain, X, decode, batch=PLAIN_BATCH):
+    """One launch of a plain version at ``batch`` matrices beside the
     kernel on the same words: bit-equal or fail.  Returns (plain ms, max
     |decoded kernel - decoded plain|)."""
-    Xp = X[:PLAIN_BATCH].contiguous()
+    Xp = X[:batch].contiguous()
     got = kernel(Xp)
     plain_ms, want = _event_ms(lambda: plain(Xp), 1)
     compare(f"{what} at {tuple(Xp.shape)} against its plain version", got, want)
@@ -1716,6 +1727,242 @@ def complex_path(device):
                                              "qr_packed_complex_wavefront":
                                                  big_wave_ms},
                 big_shape=list(Pb.shape))
+
+
+# ---------------------------------------------------------------------------
+# The packed words on dual int32 lanes (B8a, B8b): ops.qr_packed and
+# ops.qr_packed_wavefront with lanes=True
+# ---------------------------------------------------------------------------
+#: (m, n, compute_q) of the lane kernels' parity phase: every
+#: configuration takes the first two, the first configuration all three
+#: (on an H100 the plain versions take about 70 ms a step, whatever the
+#: batch: B8a's 496 steps took 35.7 s at 64 matrices).
+LANE_PARITY_SHAPES = ((4, 4, True), (3, 5, False), (6, 3, True))
+
+#: The batch at which the lane kernels' plain versions are timed: the
+#: emulated 64-bit loop issues several thousand PyTorch calls a step, so
+#: its time is that of the calls, nearly whatever the batch.
+LANE_PLAIN_BATCH = 64
+
+#: Each lane kernel: the TPU kernel it replaces, and the int64 kernel that
+#: computes the same words.
+LANE_KERNELS = {
+    "qr_packed_lanes": ("src/repro/kernels/qrd_blocked.py:229",
+                        "qr_packed_lanes_call / _qr_packed_lanes_kernel",
+                        "qr_packed"),
+    "qr_packed_lanes_wavefront": (
+        "src/repro/kernels/qrd_blocked.py:306",
+        "qr_packed_lanes_wavefront_call / _qr_packed_lanes_wavefront_kernel",
+        "qr_packed_wavefront")}
+
+
+def lane_kernels(g, steps, tabs):
+    """Each lane kernel of ``g`` and its int64 twin (both on their own
+    words), and the lane kernel's plain version."""
+    return {
+        "qr_packed_lanes": (
+            lambda L: qb.qr_packed_lanes_call(L, cfg=g, steps=steps),
+            lambda P: qb.qr_packed_call(P, cfg=g, steps=steps),
+            lambda L: qb.qr_packed_lanes_reference(L, cfg=g, steps=steps)),
+        "qr_packed_lanes_wavefront": (
+            lambda L: qb.qr_packed_lanes_wavefront_call(L, *tabs, cfg=g),
+            lambda P: qb.qr_packed_wavefront_call(P, *tabs, cfg=g),
+            lambda L: qb.qr_packed_lanes_wavefront_reference(L, *tabs, cfg=g))}
+
+
+def lanes_parity_phase(device):
+    """B8a and B8b bit-equal to their plain versions, through
+    `lanes_to_packed` to B1 and B5a on the same words, and B8b to B8a on
+    the flattened stages: the four variants at N = 26 and HUB and IEEE at
+    N = 50 (the widest N), random and edge words in one batch, both table
+    layouts, ragged batches, and both kernels with their tiles in device
+    memory (forced by lowering the shared-memory limit)."""
+    rng = np.random.default_rng(SEED + 16)
+    layouts = itertools.cycle(qb.TABLE_LAYOUTS)
+    configs = parity_configs()[:4] + [GivensConfig(n=50),
+                                      GivensConfig(hub=True, n=50)]
+    n_cases = 0
+    for i, cfg in enumerate(configs):
+        for (m, n, cq) in LANE_PARITY_SHAPES[:None if i == 0 else 2]:
+            e = n + (m if cq else 0)
+            P = torch.cat([encoded_words(cfg, 8, m, n, cq, rng, device),
+                           edge_words(cfg, 8, m, e, rng, device)]).contiguous()
+            L = cg.packed_to_lanes(P)
+            steps, tabs = givens_schedule(m, n), stage_tables(m, n)
+            what = f"{cfg} at {tuple(L.shape)}"
+            flat = check_plain(f"qr_packed_lanes {what}", qb.qr_packed_lanes_call,
+                               qb.qr_packed_lanes_reference, L, cfg=cfg,
+                               steps=steps)
+            compare(f"qr_packed_lanes {what} against qr_packed",
+                    cg.lanes_to_packed(flat),
+                    qb.qr_packed_call(P, cfg=cfg, steps=steps))
+            wave = check_plain(f"qr_packed_lanes_wavefront {what}",
+                               qb.qr_packed_lanes_wavefront_call,
+                               qb.qr_packed_lanes_wavefront_reference, L, *tabs,
+                               cfg=cfg, table_layout=next(layouts))
+            compare(f"qr_packed_lanes_wavefront {what} against "
+                    f"qr_packed_wavefront", cg.lanes_to_packed(wave),
+                    qb.qr_packed_wavefront_call(P, *tabs, cfg=cfg))
+            compare(f"qr_packed_lanes_wavefront {what} against "
+                    f"qr_packed_lanes on the flattened stages", wave,
+                    qb.qr_packed_lanes_call(L, cfg=cfg, steps=flat_order(m, n)))
+            n_cases += 1
+    cfg = parity_configs()[2]
+    L = cg.packed_to_lanes(encoded_words(cfg, 5, 6, 4, True, rng, device))
+    limit = qb.MAX_SHARED_BYTES
+    for tile_b, shared in ((4, limit), (2, limit), (2, 0)):
+        qb.MAX_SHARED_BYTES = shared          # 0: tiles in device memory
+        what = f"{cfg}, tile_b={tile_b}, shared limit {shared} B"
+        check_plain(f"qr_packed_lanes {what}", qb.qr_packed_lanes_call,
+                    qb.qr_packed_lanes_reference, L, cfg=cfg,
+                    steps=givens_schedule(6, 4), tile_b=tile_b)
+        check_plain(f"qr_packed_lanes_wavefront {what}",
+                    qb.qr_packed_lanes_wavefront_call,
+                    qb.qr_packed_lanes_wavefront_reference, L,
+                    *stage_tables(6, 4), cfg=cfg, tile_b=tile_b)
+        n_cases += 1
+    qb.MAX_SHARED_BYTES = limit
+    print(f"parity: qr_packed_lanes and qr_packed_lanes_wavefront bit-equal to "
+          f"their plain versions and, through lanes_to_packed, to qr_packed and "
+          f"qr_packed_wavefront, the wavefront also to qr_packed_lanes on the "
+          f"flattened stages, on {n_cases} cases (4 configs at N=26, HUB and "
+          f"IEEE at N=50; shapes {[s[:2] for s in LANE_PARITY_SHAPES[:2]]}, "
+          f"and {LANE_PARITY_SHAPES[2][:2]} for the first; random + edge words, "
+          f"table layouts {qb.TABLE_LAYOUTS}; ragged B=5, tiles in shared and "
+          f"in device memory)", flush=True)
+
+
+def lanes_full_phase(device, A):
+    """B8a and B8b at full width: `lanes_to_packed` of each bit-equal to B1
+    and B5a on the main path's words, HUB and IEEE at (8192, 32, 64), and
+    with the tiles in device memory at (132, 128, 256); HUB timed against
+    B1 and B5a on the same words, and the plain versions at
+    `LANE_PLAIN_BATCH` matrices."""
+    out = {name: {} for name in LANE_KERNELS}
+    for label, g in (("hub", GivensConfig(hub=True, n=26)),
+                     ("ieee", GivensConfig(n=26))):
+        unit = GivensUnit(g)
+        eye = torch.eye(M, dtype=A.dtype, device=device).expand(BATCH, M, M)
+        P = unit.encode(torch.cat([A, eye], dim=-1)).contiguous()
+        L = cg.packed_to_lanes(P)
+        fns = lane_kernels(g, givens_schedule(M, N_COLS), stage_tables(M, N_COLS))
+        for name, (lane_fn, int64_fn, plain) in fns.items():
+            twin = LANE_KERNELS[name][2]
+            what = f"{name} ({label}) at {tuple(L.shape)} against {twin}"
+            if label == "ieee":
+                compare(what, cg.lanes_to_packed(lane_fn(L)), int64_fn(P))
+                continue
+            ms, twin_ms = kernel_pair_timing(what, L, lane_fn, int64_fn, Y=P,
+                                             as_second=cg.lanes_to_packed)
+            decode = lambda X: unit.decode(cg.lanes_to_packed(X))  # noqa: E731
+            plain_ms, err = plain_timing(name, lane_fn, plain, L, decode,
+                                         batch=LANE_PLAIN_BATCH)
+            out[name].update(ms=ms, int64_ms=twin_ms, plain_ms=plain_ms,
+                             max_abs_err=err, shape=list(L.shape))
+    Ab = torch.tensor(big_operand(), device=device)
+    e = 2 * BIG_M
+    if BIG_M * e * 8 <= qb.MAX_SHARED_BYTES:
+        fail(f"{BIG_M} x {e} fits shared memory; the phase needs a larger tile")
+    g = GivensConfig(hub=True, n=26)
+    eye = torch.eye(BIG_M, dtype=Ab.dtype, device=device).expand(Ab.shape)
+    P = GivensUnit(g).encode(torch.cat([Ab, eye], dim=-1)).contiguous()
+    L = cg.packed_to_lanes(P)
+    fns = lane_kernels(g, givens_schedule(BIG_M, BIG_M), stage_tables(BIG_M, BIG_M))
+    for name, (lane_fn, int64_fn, _) in fns.items():
+        ms, twin_ms = kernel_pair_timing(
+            f"{name} at {tuple(L.shape)} (tiles in device memory) against "
+            f"{LANE_KERNELS[name][2]}", L, lane_fn, int64_fn, repeats=3, Y=P,
+            as_second=cg.lanes_to_packed)
+        out[name].update(device_tile_ms=ms, device_tile_int64_ms=twin_ms,
+                         device_tile_shape=list(L.shape))
+    for name, r in out.items():
+        twin = LANE_KERNELS[name][2]
+        print(f"timing {name} at {tuple(r['shape'])}: {r['ms']:.3f} ms, {twin} "
+              f"on the same words {r['int64_ms']:.3f} ms "
+              f"({r['ms'] / r['int64_ms']:.2f}x; medians of 2 x 5, in turns); "
+              f"at {tuple(r['device_tile_shape'])} in device memory "
+              f"{r['device_tile_ms']:.3f} ms, {twin} {r['device_tile_int64_ms']:.3f} "
+              f"ms (medians of 2 x 3); plain version {r['plain_ms']:.1f} ms for "
+              f"one launch at {LANE_PLAIN_BATCH} matrices; HUB and IEEE words "
+              f"bit-equal to {twin}'s through lanes_to_packed", flush=True)
+    return out
+
+
+def lanes_path(device, A):
+    """The lanes route through its entry points: `ops.qr_packed(lanes=True)`
+    and `ops.qr_packed_wavefront(lanes=True)` on the words that
+    `qr_cordic_pallas` / `qr_cordic_wavefront` encode from the main path's
+    A, HUB and IEEE; each call counted alone, one launch of its lane kernel
+    and none of any other; decoded and split, Q and R bit-equal to
+    QRDEngine(backend='cordic_pallas') on the column-major and the
+    sameh_kuck schedules."""
+    launches = {name: 0 for name in LANE_KERNELS}
+    eye = torch.eye(M, dtype=A.dtype, device=device).expand(BATCH, M, M)
+    for label, g in (("hub", GivensConfig(hub=True, n=26)),
+                     ("ieee", GivensConfig(n=26))):
+        unit = GivensUnit(g)
+        P = unit.encode(torch.cat([A, eye], dim=-1))
+        calls = {
+            "qr_packed_lanes": ("col", lambda: ops.qr_packed(
+                P, cfg=g, steps=givens_schedule(M, N_COLS), lanes=True)),
+            "qr_packed_lanes_wavefront": ("sameh_kuck", lambda: ops.qr_packed_wavefront(
+                P, cfg=g, stages=sameh_kuck_schedule(M, N_COLS), lanes=True))}
+        for name, (sched, call) in calls.items():
+            out, counts = counted_call(call)
+            want = {k: int(k == name) for k in COUNTERS}
+            if counts != want:
+                fail(f"lanes path {name} ({label}): launches {counts}, expected "
+                     f"{want}")
+            launches[name] += counts[name]
+            Q, R = split_qr(unit.decode(out), M, N_COLS, True)
+            Qe, Re = _engine(device, g, schedule=sched)(A)
+            for what, got, ref in (("Q", Q, Qe), ("R", R, Re)):
+                compare(f"lanes path {name} ({label}): {what} against "
+                        f"QRDEngine(schedule={sched!r})", got.view(torch.int64),
+                        ref.view(torch.int64))
+    print(f"lanes path: ops.qr_packed(lanes=True) and "
+          f"ops.qr_packed_wavefront(lanes=True) at {(BATCH, M, M + N_COLS)}, HUB "
+          f"and IEEE: one launch each of its lane kernel ({launches}), Q and R "
+          f"bit-equal to QRDEngine(backend='cordic_pallas') on the column-major "
+          f"and sameh_kuck schedules", flush=True)
+    return launches
+
+
+def lane_entries(full, path_launches, timing, big):
+    """The kernels line's entries of B8a and B8b; the bound is B1's (the
+    same elements are rotated), at both shapes."""
+    entries = []
+    for name, (where, function, twin) in LANE_KERNELS.items():
+        r = full[name]
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/packed_lanes.cu",
+            "replaces": where,
+            "replaces_function": function,
+            "launches": path_launches[name],
+            "launches_per_call": {"ops.qr_packed(lanes=True)"
+                                  if name == "qr_packed_lanes" else
+                                  "ops.qr_packed_wavefront(lanes=True)": 1},
+            "parity": "bit-equal",
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": timing["bound_ms"],
+            "bound_by": timing["bound_by"],
+            "library_ms": None,
+            "shape": r["shape"],
+            "plain_shape": [LANE_PLAIN_BATCH] + r["shape"][1:],
+            "plain_ms_is": f"one launch at {LANE_PLAIN_BATCH} matrices",
+            "int64_kernel": twin,
+            "int64_kernel_ms_same_words": r["int64_ms"],
+            "device_tile_ms": r["device_tile_ms"],
+            "device_tile_int64_ms": r["device_tile_int64_ms"],
+            "device_tile_bound_ms": big["bound_ms"],
+            "device_tile_shape": r["device_tile_shape"],
+            "config": "hub n=26 iters=24",
+        })
+    return entries
 
 
 # ---------------------------------------------------------------------------
@@ -2118,7 +2365,7 @@ def run(device):
     """Every phase on ``device``; returns 0 or exits non-zero."""
     t0 = time.perf_counter()
     sources = ["qr_packed", "panel_packed", "blockfp", "wavefront",
-               "complex_packed", "rotator"]
+               "complex_packed", "rotator", "packed_lanes"]
     _build.build(sources)                      # one nvcc each, in parallel
     print(f"build: {', '.join(s + '.cu' for s in sources)} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -2160,6 +2407,11 @@ def run(device):
     wave_big = wavefront_big_phase(device)
     complex_parity_phase(device)
     cplx = complex_path(device)
+    t_lanes = time.perf_counter()
+    lanes_parity_phase(device)
+    lanes = lanes_full_phase(device, A)
+    lane_launches = lanes_path(device, A)
+    print(f"lanes phases: {time.perf_counter() - t_lanes:.1f} s", flush=True)
     rotator_parity_phase(device)
     rot = rotator_full_phase(device)
     baselines_phase(device)
@@ -2374,6 +2626,7 @@ def run(device):
             "device_tile_shape": cplx["big_shape"],
             "config": "hub n=26 iters=24",
         })
+    kernels += lane_entries(lanes, lane_launches, timing, big)
     kernels += rotator_entries(rot)
     print(f"engine call host wall: panel path {panel_wall:.3f} ms, tsqr path "
           f"{tsqr_wall:.3f} ms; block-FP panel path {bfp_panel_wall:.3f} ms, "

@@ -18,8 +18,9 @@ import numpy as np
 import torch
 
 __all__ = [
-    "MAX_ITERS", "GAIN_TABLE", "gain_comp_constant",
+    "MAX_ITERS", "GAIN_TABLE", "cordic_gain", "gain_comp_constant",
     "gain_shift", "fixmul", "vectoring", "rotation", "apply_gain",
+    "vectoring_rotation",
 ]
 
 MAX_ITERS = 60
@@ -29,6 +30,11 @@ MAX_ITERS = 60
 # the compensation constants agree to the bit.
 _g = np.cumprod([np.sqrt(1.0 + 2.0 ** (-2.0 * i)) for i in range(MAX_ITERS)])
 GAIN_TABLE = np.concatenate([[1.0], _g])
+
+
+def cordic_gain(iters: int) -> float:
+    """The CORDIC gain K(iters) after ``iters`` micro-rotations."""
+    return float(GAIN_TABLE[iters])
 
 
 def gain_comp_constant(iters: int, p: int) -> int:
@@ -126,3 +132,21 @@ def apply_gain(x, y, iters: int, w: int, hub: bool):
     comp = gain_comp_constant(iters, p)
     return (fixmul(x, comp, p, round_nearest=not hub),
             fixmul(y, comp, p, round_nearest=not hub))
+
+
+def vectoring_rotation(x_lead, y_lead, x_rest, y_rest, iters: int, w: int,
+                       hub: bool):
+    """Full Givens rotation of two rows in the fixed-point domain.
+
+    (x_lead, y_lead): the leading element pair (any batch shape).
+    (x_rest, y_rest): the remaining element pairs, with one extra trailing
+    axis that the (flip, sigma) state broadcasts across.
+    Returns the rotated (r_lead, y0_lead, x_rest', y_rest'), gain
+    compensated.
+    """
+    xl, yl, flip, sig = vectoring(x_lead, y_lead, iters, hub)
+    xr, yr = rotation(x_rest, y_rest, flip[..., None], sig[..., None], iters,
+                      hub)
+    xl, yl = apply_gain(xl, yl, iters, w, hub)
+    xr, yr = apply_gain(xr, yr, iters, w, hub)
+    return xl, yl, xr, yr

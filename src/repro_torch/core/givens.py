@@ -92,9 +92,19 @@ class GivensUnit:
                 v, m_exp, self.cfg.fmt, N, unbiased=self.cfg.unbiased)
         return conv.output_convert_ieee(v, m_exp, self.cfg.fmt, N)
 
-    def vector(self, xp, yp):
-        """Vectoring on the leading pair -> ``(r_packed, y_packed, (flip, sigmas))``."""
-        N, iters = self.cfg.n, self.cfg.resolved_iters()
+    def _widths(self, N, iters):
+        """``(N, iters)``: each override as a Python int (a 0-d tensor or a
+        numpy integer is accepted), or the config's value where None."""
+        return (self.cfg.n if N is None else int(N),
+                self.cfg.resolved_iters() if iters is None else int(iters))
+
+    def vector(self, xp, yp, N=None, iters=None):
+        """Vectoring on the leading pair -> ``(r_packed, y_packed, (flip, sigmas))``.
+
+        ``N`` and ``iters`` override the config's significand width and
+        CORDIC depth (the paper's Fig. 9 sweep); None takes the config's.
+        """
+        N, iters = self._widths(N, iters)
         xf, yf, m_exp = self._to_fixed(xp, yp, N)
         xr, yr, flip, sig = cordic.vectoring(xf, yf, iters, self.cfg.hub)
         xr, yr = cordic.apply_gain(xr, yr, iters, N + 2, self.cfg.hub)
@@ -102,9 +112,10 @@ class GivensUnit:
                 self._to_float(yr, m_exp, N),
                 (flip, sig))
 
-    def rotate(self, xp, yp, state):
-        """Replay ``state = (flip, sigmas)`` on another element pair."""
-        N, iters = self.cfg.n, self.cfg.resolved_iters()
+    def rotate(self, xp, yp, state, N=None, iters=None):
+        """Replay ``state = (flip, sigmas)`` on another element pair;
+        ``N``/``iters`` as in `vector`."""
+        N, iters = self._widths(N, iters)
         flip, sig = state
         xf, yf, m_exp = self._to_fixed(xp, yp, N)
         xr, yr = cordic.rotation(xf, yf, flip, sig, iters, self.cfg.hub)
@@ -112,39 +123,42 @@ class GivensUnit:
         return (self._to_float(xr, m_exp, N),
                 self._to_float(yr, m_exp, N))
 
-    def rotate_rows(self, row_x, row_y):
+    def rotate_rows(self, row_x, row_y, N=None, iters=None):
         """Full Givens rotation of two packed rows (..., e).
 
         Vectoring on element 0, rotation broadcast over elements 1..e-1.
         Returns the rotated rows; row_y[..., 0] is the (near-)zeroed entry.
+        ``N``/``iters`` as in `vector`.
         """
-        rx0, ry0, (flip, sig) = self.vector(row_x[..., 0], row_y[..., 0])
+        rx0, ry0, (flip, sig) = self.vector(row_x[..., 0], row_y[..., 0],
+                                            N, iters)
         rx, ry = self.rotate(row_x[..., 1:], row_y[..., 1:],
-                             (flip[..., None], sig[..., None]))
+                             (flip[..., None], sig[..., None]), N, iters)
         return (torch.cat([rx0[..., None], rx], dim=-1),
                 torch.cat([ry0[..., None], ry], dim=-1))
 
     # -- complex datapath: the three-rotation decomposition ------------------
-    def phase_vector(self, re_p, im_p):
+    def phase_vector(self, re_p, im_p, N=None, iters=None):
         """Vectoring on the (re, im) lane pair of one complex entry.
 
         Returns ``(mag_packed, state, skip)``: the realized entry (|z|
         packed; the raw real lane where ``skip``), the replayable ``(flip,
         sigmas)`` phase control word, and the lanes whose imaginary word is
         ±0, where the phase rotation is the exact identity (purely real
-        inputs then follow the real datapath bit for bit).
+        inputs then follow the real datapath bit for bit).  ``N``/``iters``
+        as in `vector`.
         """
-        mag, _, state = self.vector(re_p, im_p)
+        mag, _, state = self.vector(re_p, im_p, N, iters)
         skip = packed_is_zero(im_p, self.cfg.fmt)
         return torch.where(skip, re_p, mag), state, skip
 
-    def phase_rotate(self, re_p, im_p, state, skip):
+    def phase_rotate(self, re_p, im_p, state, skip, N=None, iters=None):
         """Replay a phase control word on further (re, im) lane pairs;
         where ``skip`` the inputs pass through untouched."""
-        rr, ri = self.rotate(re_p, im_p, state)
+        rr, ri = self.rotate(re_p, im_p, state, N, iters)
         return torch.where(skip, re_p, rr), torch.where(skip, im_p, ri)
 
-    def rotate_rows_complex(self, row_x, row_y):
+    def rotate_rows_complex(self, row_x, row_y, N=None, iters=None):
         """Complex Givens rotation of two packed rows of (re, im) lanes.
 
         Two phase rotations realize the lead entries of the pivot and the
@@ -160,22 +174,24 @@ class GivensUnit:
         -------
         (row_x', row_y') with the structural zeros forced:
         ``row_y'[..., 0, :] == 0`` and ``row_x'[..., 0, 1] == 0`` (the
-        realized pivot is real).
+        realized pivot is real).  ``N``/``iters`` as in `vector`.
         """
         xr, xi = row_x[..., 0], row_x[..., 1]
         yr, yi = row_y[..., 0], row_y[..., 1]
-        magx, (fx, sx), skx = self.phase_vector(xr[..., 0], xi[..., 0])
-        magy, (fy, sy), sky = self.phase_vector(yr[..., 0], yi[..., 0])
+        magx, (fx, sx), skx = self.phase_vector(xr[..., 0], xi[..., 0], N,
+                                                iters)
+        magy, (fy, sy), sky = self.phase_vector(yr[..., 0], yi[..., 0], N,
+                                                iters)
         pxr, pxi = self.phase_rotate(xr[..., 1:], xi[..., 1:],
                                      (fx[..., None], sx[..., None]),
-                                     skx[..., None])
+                                     skx[..., None], N, iters)
         pyr, pyi = self.phase_rotate(yr[..., 1:], yi[..., 1:],
                                      (fy[..., None], sy[..., None]),
-                                     sky[..., None])
-        r, _, (flip, sig) = self.vector(magx, magy)
+                                     sky[..., None], N, iters)
+        r, _, (flip, sig) = self.vector(magx, magy, N, iters)
         st = (flip[..., None], sig[..., None])
-        oxr, oyr = self.rotate(pxr, pyr, st)
-        oxi, oyi = self.rotate(pxi, pyi, st)
+        oxr, oyr = self.rotate(pxr, pyr, st, N, iters)
+        oxi, oyi = self.rotate(pxi, pyi, st, N, iters)
         zero = torch.zeros_like(r)[..., None]
         out_x = torch.stack([torch.cat([r[..., None], oxr], dim=-1),
                              torch.cat([zero, oxi], dim=-1)], dim=-1)
@@ -183,7 +199,7 @@ class GivensUnit:
                              torch.cat([zero, oyi], dim=-1)], dim=-1)
         return out_x, out_y
 
-    def annihilate(self, row_x, row_y, col):
+    def annihilate(self, row_x, row_y, col, N=None, iters=None):
         """Givens-rotate two packed rows so ``row_y[col]`` is zeroed.
 
         The pivot-anywhere form of `rotate_rows`, the step of the QRD-RLS
@@ -197,6 +213,7 @@ class GivensUnit:
         row_x, row_y : (..., e) int64 packed FP words — pivot and target row.
         col : int — pivot column; ``row_y[..., col]`` is annihilated against
             ``row_x[..., col]``.
+        N, iters : optional overrides, as in `vector`.
 
         Returns
         -------
@@ -204,6 +221,6 @@ class GivensUnit:
         """
         rx = torch.roll(row_x, -col, dims=-1)
         ry = torch.roll(row_y, -col, dims=-1)
-        ox, oy = self.rotate_rows(rx, ry)
+        ox, oy = self.rotate_rows(rx, ry, N, iters)
         oy[..., 0] = 0              # the zeroed entry is structural
         return torch.roll(ox, col, dims=-1), torch.roll(oy, col, dims=-1)

@@ -126,7 +126,18 @@ def _packed_qr(A, unit: GivensUnit, compute_q, steps, run):
     return _split_qr(out, m, n, compute_q)
 
 
-def qr_cordic(A, unit: GivensUnit, compute_q=True, steps=None):
+def _override(unit: GivensUnit, N, iters) -> GivensUnit:
+    """``unit`` with its significand width and CORDIC depth overridden where
+    ``N``/``iters`` are given (Python ints, 0-d tensors or numpy integers),
+    resolved on the host as `GivensUnit.vector` resolves them."""
+    if N is None and iters is None:
+        return unit
+    N, iters = unit._widths(N, iters)
+    return GivensUnit(dataclasses.replace(unit.cfg, n=N, iters=iters))
+
+
+def qr_cordic(A, unit: GivensUnit, N=None, iters=None, compute_q=True,
+              steps=None):
     """QRD of a batch of matrices with the paper's unit (host loop).
 
     Runs `repro_torch.kernels.qrd_blocked.qr_packed_reference`, the plain
@@ -136,6 +147,8 @@ def qr_cordic(A, unit: GivensUnit, compute_q=True, steps=None):
     ----------
     A : (..., m, n) tensor or array_like, converted to float64.
     unit : GivensUnit — the configured rotator (IEEE or HUB datapath).
+    N, iters : optional — override the config's significand width and
+        CORDIC depth (the paper's Fig. 9 sweep); None takes the config's.
     compute_q : bool — augment the rows with the identity to accumulate Qᵀ.
     steps : sequence[(int, int, int)], optional — defaults to column-major.
 
@@ -145,10 +158,11 @@ def qr_cordic(A, unit: GivensUnit, compute_q=True, steps=None):
     structural zeros forced.
     """
     from repro_torch.kernels.qrd_blocked import qr_packed_reference
+    cfg = _override(unit, N, iters).cfg
 
     def run(P, steps):
         m, e = P.shape[-2:]
-        out = qr_packed_reference(P.reshape((-1, m, e)), cfg=unit.cfg,
+        out = qr_packed_reference(P.reshape((-1, m, e)), cfg=cfg,
                                   steps=steps)
         return out.reshape(P.shape)
     return _packed_qr(A, unit, compute_q, steps, run)
@@ -385,7 +399,8 @@ def _complex_qr(A, unit, compute_q, run):
                              compute_q)
 
 
-def qr_cordic_complex(A, unit: GivensUnit, compute_q=True, steps=None):
+def qr_cordic_complex(A, unit: GivensUnit, N=None, iters=None, compute_q=True,
+                      steps=None):
     """Complex QRD of a batch of matrices with the paper's unit (host loop).
 
     Every schedule step runs the three-rotation decomposition
@@ -400,6 +415,8 @@ def qr_cordic_complex(A, unit: GivensUnit, compute_q=True, steps=None):
     ----------
     A : (..., m, n) tensor or array_like, converted to complex128.
     unit : GivensUnit — the configured rotator (IEEE or HUB datapath).
+    N, iters : optional — override the config's significand width and
+        CORDIC depth, as in `qr_cordic`.
     compute_q : bool — augment the rows with the identity to accumulate the
         unitary G; ``Q = G^H``.
     steps : sequence[(int, int, int)], optional — defaults to column-major.
@@ -410,12 +427,13 @@ def qr_cordic_complex(A, unit: GivensUnit, compute_q=True, steps=None):
     structural zeros forced and its diagonal exactly real.
     """
     from repro_torch.kernels.qrd_blocked import qr_packed_complex_reference
+    cfg = _override(unit, N, iters).cfg
 
     def run(P, m, n):
         s = givens_schedule(m, n) if steps is None else tuple(steps)
         e = P.shape[-2]
         out = qr_packed_complex_reference(P.reshape((-1, m, e, 2)),
-                                          cfg=unit.cfg, steps=s)
+                                          cfg=cfg, steps=s)
         return out.reshape(P.shape)
     return _complex_qr(A, unit, compute_q, run)
 

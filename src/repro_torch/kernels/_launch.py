@@ -22,6 +22,10 @@ C_INT, C_LL, C_PTR = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 #: launch takes them, followed by the stream.
 UNIT_ARGTYPES = [C_INT] * 2 + [C_LL] * 2 + [C_INT] * 6 + [C_LL, C_INT, C_PTR]
 
+#: ctypes types of `qrd_blocked._lane_args` (every scalar 32-bit, the gain
+#: constant's two halves unsigned), followed by the stream.
+LANE_ARGTYPES = [C_INT] * 10 + [ctypes.c_uint] * 2 + [C_INT, C_PTR]
+
 #: The launch functions of each source: their C argument types.
 SIGNATURES = {
     "qr_packed_launch": [C_PTR] * 3 + [C_INT] * 7 + UNIT_ARGTYPES,
@@ -46,6 +50,10 @@ SIGNATURES = {
     "qr_packed_complex_launch": [C_PTR] * 3 + [C_INT] * 7 + UNIT_ARGTYPES,
     "qr_packed_complex_wavefront_launch": ([C_PTR] * 3 + [C_INT] * 8
                                            + UNIT_ARGTYPES),
+    # the lanes: as qr_packed_launch and qr_packed_wavefront_launch
+    "qr_packed_lanes_launch": [C_PTR] * 3 + [C_INT] * 7 + LANE_ARGTYPES,
+    "qr_packed_lanes_wavefront_launch": ([C_PTR] * 3 + [C_INT] * 8
+                                         + LANE_ARGTYPES),
     # the rotator: (x, y, xo, yo, four row strides, ...)
     "vectoring_launch": ([C_PTR] * 4 + [C_LL] * 4 + [C_PTR] * 2 + [C_INT] * 4
                          + [C_PTR]),

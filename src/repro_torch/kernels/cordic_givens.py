@@ -50,7 +50,7 @@ from repro_torch.core.cordic import GAIN_TABLE
 
 from . import _launch
 
-__all__ = ["comp_q30", "fused_rotate_block", "fused_rotate_ctrl",
+__all__ = ["packed_to_lanes", "lanes_to_packed", "comp_q30", "fused_rotate_block", "fused_rotate_ctrl",
            "fused_replay", "fused_rotate_pairs", "MAX_ITERS",
            "vectoring_call", "vectoring_reference", "VECTORING_LAUNCHES",
            "rotation_call", "rotation_reference", "ROTATION_LAUNCHES",
@@ -70,6 +70,25 @@ FUSED_LAUNCHES = 0
 #: kernel (``kThreads`` and ``kRows`` of ``csrc/rotator.cu``).
 _THREADS = 256
 _FUSED_ROWS = 256
+
+
+def packed_to_lanes(p):
+    """Packed int64 FP words -> stacked (hi, lo) int32 lane words (..., 2):
+    ``[..., 0] = int32(p >> 32)``, ``[..., 1] = int32(p)``, on p's device.
+    Exact (two's complement) and inverted by `lanes_to_packed`; the operand
+    of the dual-int32 kernels (`repro_torch.kernels.packed_lanes`)."""
+    p = torch.as_tensor(p).to(torch.int64)
+    lo = ((p & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000
+    return torch.stack([(p >> 32).to(torch.int32), lo.to(torch.int32)],
+                       dim=-1)
+
+
+def lanes_to_packed(L):
+    """Stacked (hi, lo) int32 lane words (..., 2) -> packed int64 FP words,
+    on L's device."""
+    hi = L[..., 0].to(torch.int64)
+    lo = L[..., 1].to(torch.int64) & 0xFFFFFFFF
+    return (hi << 32) | lo
 
 
 def comp_q30(iters: int) -> int:

@@ -22,8 +22,12 @@ unless the caller passes ``device="cpu"``); a tensor stays on its device
   `givens_block_apply_panel` and `givens_block_apply_wavefront`.
 
 The wavefront wrappers take the stage schedule as (S, Pmax) tables
-(`_stage_tables`).  The dual-int32 ``lanes`` route of the JAX package is
-ROADMAP B8 and not ported: the port has no ``lanes`` argument.
+(`_stage_tables`).  `qr_packed` and `qr_packed_wavefront` also run the
+JAX package's dual-int32 ``lanes`` route (``lanes=True``): the same words
+as (hi, lo) int32 halves through the kernels of ``csrc/packed_lanes.cu``,
+bit-identical to the int64 route.  The JAX package takes lanes by default
+because a TPU cannot compile int64; int64 is native on the GPU, so here
+``lanes=None`` means int64.
 """
 from __future__ import annotations
 
@@ -166,7 +170,7 @@ def rls_block_steps(n: int, block: int):
     return tuple((k, n + j, k) for k in range(n) for j in range(block))
 
 
-def qr_packed(P, *, cfg, steps, tile_b=None):
+def qr_packed(P, *, cfg, steps, tile_b=None, lanes=None):
     """Kernel-resident blocked QR over packed FP words (bit-exact path).
 
     Parameters
@@ -177,6 +181,12 @@ def qr_packed(P, *, cfg, steps, tile_b=None):
     cfg : GivensConfig — unit configuration.
     steps : tuple[(int, int, int), ...] — ``(pivot_row, target_row, col)``.
     tile_b : int, optional — matrices per CUDA block (`qrd_blocked.TILE_B`).
+    lanes : bool, optional
+        Carry the words as dual int32 lanes (`qrd_blocked.
+        qr_packed_lanes_call`) instead of int64; the words are the same.
+        None means False: int64 is native on the GPU, where the JAX
+        package's default (lanes whenever the kernel compiles) exists
+        because a TPU cannot compile int64.
 
     Returns
     -------
@@ -186,7 +196,11 @@ def qr_packed(P, *, cfg, steps, tile_b=None):
     batch = P.shape[:-2]
     m, e = P.shape[-2:]
     Pf = P.to(torch.int64).reshape((-1, m, e)).contiguous()
-    out = qb.qr_packed_call(Pf, cfg=cfg, steps=steps, tile_b=tile_b)
+    if lanes:
+        out = cg.lanes_to_packed(qb.qr_packed_lanes_call(
+            cg.packed_to_lanes(Pf), cfg=cfg, steps=steps, tile_b=tile_b))
+    else:
+        out = qb.qr_packed_call(Pf, cfg=cfg, steps=steps, tile_b=tile_b)
     return out.reshape(batch + (m, e))
 
 
@@ -227,7 +241,8 @@ def _stage_tables(stages, m):
     return piv, tgt, col
 
 
-def qr_packed_wavefront(P, *, cfg, stages, tile_b=None, table_layout=None):
+def qr_packed_wavefront(P, *, cfg, stages, tile_b=None, lanes=None,
+                        table_layout=None):
     """Wavefront QR over packed FP words (bit-exact path).
 
     The stage-parallel counterpart of `qr_packed`: all rotations of a
@@ -241,6 +256,9 @@ def qr_packed_wavefront(P, *, cfg, stages, tile_b=None, table_layout=None):
     stages : tuple[tuple[(int, int, int), ...], ...] — the stage schedule
         (`sameh_kuck_schedule(m, n)`); each stage's row pairs disjoint.
     tile_b : int, optional — matrices per CUDA block.
+    lanes : bool, optional — dual int32 lanes
+        (`qrd_blocked.qr_packed_lanes_wavefront_call`) instead of int64, as
+        in `qr_packed` (None means False).
     table_layout : 'split' | 'stacked', optional — the JAX package's table
         transfer layout; accepted, the words do not depend on it.
 
@@ -253,9 +271,13 @@ def qr_packed_wavefront(P, *, cfg, stages, tile_b=None, table_layout=None):
     m, e = P.shape[-2:]
     piv, tgt, col = _stage_tables(stages, m)
     Pf = P.to(torch.int64).reshape((-1, m, e)).contiguous()
-    out = qb.qr_packed_wavefront_call(Pf, piv, tgt, col, cfg=cfg,
-                                      tile_b=tile_b,
-                                      table_layout=_resolve_layout(table_layout))
+    kw = dict(cfg=cfg, tile_b=tile_b,
+              table_layout=_resolve_layout(table_layout))
+    if lanes:
+        out = cg.lanes_to_packed(qb.qr_packed_lanes_wavefront_call(
+            cg.packed_to_lanes(Pf), piv, tgt, col, **kw))
+    else:
+        out = qb.qr_packed_wavefront_call(Pf, piv, tgt, col, **kw)
     return out.reshape(batch + (m, e))
 
 

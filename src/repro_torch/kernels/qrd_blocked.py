@@ -37,6 +37,15 @@ wrappers, launch counters and plain PyTorch versions.
   `qr_packed_complex_reference`, the loop of
   `GivensUnit.rotate_rows_complex`, and to
   `qr_packed_complex_wavefront_reference`.
+* `qr_packed_lanes_call` and `qr_packed_lanes_wavefront_call`
+  (``csrc/packed_lanes.cu``) replace their namesakes of the JAX package:
+  the flat and the wavefront packed-word QR on (B, m, e, 2) int32 (hi, lo)
+  lane words, the unit's int64 arithmetic done on 32-bit halves.
+  Bit-identical to `qr_packed_lanes_reference`, the loop of
+  `packed_lanes.LaneUnit.rotate_rows`, and to
+  `qr_packed_lanes_wavefront_reference`; through
+  `cordic_givens.lanes_to_packed`, to `qr_packed_call` and
+  `qr_packed_wavefront_call` on the same words.
 
 Each wrapper dispatches on the operand's device: a CUDA tensor launches the
 kernel (or raises), a CPU tensor runs the plain version.
@@ -57,6 +66,7 @@ from ._launch import check_launch as _check_launch
 from ._launch import check_operand as _check_operand
 from ._launch import lib as _lib
 from ._launch import stream as _stream
+from .packed_lanes import LaneUnit
 
 __all__ = ["qr_packed_call", "qr_packed_reference", "QR_PACKED_LAUNCHES",
            "panel_factor_packed_call", "panel_factor_packed_reference",
@@ -72,7 +82,11 @@ __all__ = ["qr_packed_call", "qr_packed_reference", "QR_PACKED_LAUNCHES",
            "qr_packed_complex_call", "qr_packed_complex_reference",
            "QR_PACKED_COMPLEX_LAUNCHES", "qr_packed_complex_wavefront_call",
            "qr_packed_complex_wavefront_reference",
-           "QR_PACKED_COMPLEX_WAVEFRONT_LAUNCHES", "TABLE_LAYOUTS",
+           "QR_PACKED_COMPLEX_WAVEFRONT_LAUNCHES", "qr_packed_lanes_call",
+           "qr_packed_lanes_reference", "QR_PACKED_LANES_LAUNCHES",
+           "qr_packed_lanes_wavefront_call",
+           "qr_packed_lanes_wavefront_reference",
+           "QR_PACKED_LANES_WAVEFRONT_LAUNCHES", "TABLE_LAYOUTS",
            "TILE_B", "MAX_SHARED_BYTES", "kernel_params"]
 
 #: Matrices per CUDA block when the caller gives no ``tile_b``.
@@ -96,6 +110,8 @@ QR_PACKED_WAVEFRONT_LAUNCHES = 0
 QR_BLOCKFP_WAVEFRONT_LAUNCHES = 0
 QR_PACKED_COMPLEX_LAUNCHES = 0
 QR_PACKED_COMPLEX_WAVEFRONT_LAUNCHES = 0
+QR_PACKED_LANES_LAUNCHES = 0
+QR_PACKED_LANES_WAVEFRONT_LAUNCHES = 0
 
 #: How the JAX package's wavefront kernels take their stage tables (three
 #: operands or one stacked operand).  Both are accepted; on the GPU the
@@ -184,6 +200,16 @@ def kernel_params(cfg: GivensConfig) -> dict:
 @lru_cache(maxsize=SCHEDULE_CACHE_SIZE)
 def _unit_args(cfg: GivensConfig):
     return tuple(kernel_params(cfg).values())
+
+
+@lru_cache(maxsize=SCHEDULE_CACHE_SIZE)
+def _lane_args(cfg: GivensConfig):
+    """`kernel_params` as the lane kernels take them: every scalar a 32-bit
+    int, the gain constant split into its (hi, lo) halves."""
+    k = kernel_params(cfg)
+    comp = k.pop("comp")
+    p = k.pop("p")
+    return (*k.values(), comp >> 32, comp & 0xFFFFFFFF, p)
 
 
 def _threads_x(e: int) -> int:
@@ -663,17 +689,21 @@ def _stage_threads(pairs: int, e: int) -> int:
     return min(max(-(-pairs * e // 32) * 32, 32), 256)
 
 
-def _wavefront_scan(P, piv, tgt, col, stage_fn, lanes=False):
+def _wavefront_scan(P, piv, tgt, col, stage_fn, pair=None):
     """Plain-PyTorch stage loop of the wavefront kernels.
 
     For each stage: gather the pivot and target rows of all Pmax pairs
     into (B, Pmax, e[, 2]) tensors, rotate them with ``stage_fn(X, Y,
     lead)`` at uniform width (``lead`` the (Pmax, e) one-hot of each pair's
-    lead column), restore the lanes left of the lead, force the structural
-    zeros (the target lead; with ``lanes``, the complex operand's (re, im)
-    axis, also the pivot lead's imaginary lane) and scatter the rows back.
-    Padded pairs name row ``m``: a zero sentinel row appended to the tile,
-    which they read as zeros and whose writes are discarded.
+    lead column), restore the elements left of the lead, force the
+    structural zeros and scatter the rows back.  ``pair`` names the
+    trailing axis of size 2 of (B, m, e, 2) words: ``'complex'`` (re, im)
+    words, whose target lead is zeroed on both lanes and the pivot lead on
+    its imaginary lane (the realized pivot is real); ``'lanes'`` (hi, lo)
+    halves of one word, whose target lead is zeroed on both lanes only.
+    None: (B, m, e) words, the target lead zeroed.  Padded pairs name row
+    ``m``: a zero sentinel row appended to the tile, which they read as
+    zeros and whose writes are discarded.
     """
     B, m, e = P.shape[:3]
     Pz = torch.cat([P, P.new_zeros((B, 1) + P.shape[2:])], dim=1)
@@ -686,10 +716,10 @@ def _wavefront_scan(P, piv, tgt, col, stage_fn, lanes=False):
         lead = colid[None] == cl[:, None]               # (Pmax, e)
         active = colid[None] >= cl[:, None]
         rx, ry = stage_fn(X, Y, lead)
-        lm, am = (lead[..., None], active[..., None]) if lanes else (lead, active)
+        lm, am = (lead[..., None], active[..., None]) if pair else (lead, active)
         rx = torch.where(am, rx, X)                    # untouched left lanes
         ry = torch.where(am, ry, Y)
-        if lanes:
+        if pair == "complex":
             rx = torch.where(lm & im, 0, rx)           # realized pivot is real
         ry = torch.where(lm, 0, ry)                    # structural zero
         Pz[:, pv] = rx
@@ -777,21 +807,22 @@ def qr_packed_complex_wavefront_reference(P, piv, tgt, col, *,
         rxr, ryr = unit.rotate(pxr, pyr, st)
         rxi, ryi = unit.rotate(pxi, pyi, st)
         return torch.stack([rxr, rxi], -1), torch.stack([ryr, ryi], -1)
-    return _wavefront_scan(P, piv, tgt, col, stage, lanes=True)
+    return _wavefront_scan(P, piv, tgt, col, stage, pair="complex")
 
 
 def _packed_launch(fn: str, lib: str, P, table, sizes, pairs: int,
-                   threads_x: int, ctrl_words: int, tile_b, cfg):
+                   threads_x: int, ctrl_words: int, tile_b, unit_args):
     """Launch the stage-loop kernel behind ``fn`` on P's (B, m, e[, 2])
-    packed tiles; ``sizes`` are the launch's table sizes after (B, m, e).
-    The tiles live in shared memory when a block's tiles and per-pair
-    control words (``ctrl_words`` int64 per pair) fit `MAX_SHARED_BYTES`,
-    else in place in the output's device memory.  Returns the output."""
+    packed tiles; ``sizes`` are the launch's table sizes after (B, m, e),
+    ``unit_args`` the unit's scalars (`_unit_args`, `_lane_args`).  The
+    tiles live in shared memory when a block's tiles and per-pair control
+    words (``ctrl_words`` of 8 bytes per pair) fit `MAX_SHARED_BYTES`, else
+    in place in the output's device memory.  Returns the output."""
     if not P.is_contiguous():
         raise ValueError(f"{fn}: expected a contiguous tensor")
     B, m, e = P.shape[:3]
     tile_b = _block_shape(fn, tile_b, threads_x)
-    tile_bytes = P[0].numel() * 8 if B else 0
+    tile_bytes = P[0].numel() * P.element_size() if B else 0
     device_tile = (tile_b * (tile_bytes + pairs * ctrl_words * 8)
                    > MAX_SHARED_BYTES)
     out = torch.empty_like(P)
@@ -799,8 +830,8 @@ def _packed_launch(fn: str, lib: str, P, table, sizes, pairs: int,
         return out
     launch = getattr(_lib(lib), fn.removesuffix("_call") + "_launch")
     err = launch(P.data_ptr(), out.data_ptr(), table.data_ptr(), B, m, e,
-                 *sizes, tile_b, threads_x, int(device_tile),
-                 *_unit_args(cfg), _stream(P))
+                 *sizes, tile_b, threads_x, int(device_tile), *unit_args,
+                 _stream(P))
     _check_launch(lib, err)
     return out
 
@@ -838,7 +869,7 @@ def qr_packed_wavefront_call(P, piv, tgt, col, *, cfg: GivensConfig,
     S, pairs = table.shape[1:]
     out = _packed_launch("qr_packed_wavefront_call", "wavefront", P, table,
                          (S, pairs), pairs, _stage_threads(pairs, e), 2,
-                         tile_b, cfg)
+                         tile_b, _unit_args(cfg))
     QR_PACKED_WAVEFRONT_LAUNCHES += int(B > 0)
     return out
 
@@ -884,13 +915,14 @@ def qr_blockfp_wavefront_call(X, piv, tgt, col, *, iters: int, hub: bool,
     return out
 
 
-def _check_complex(fn: str, P) -> bool:
-    """`_check_operand` for (B, m, e, 2) (re, im) words, whose shape is
-    checked on any device."""
+def _check_pairs(fn: str, P, pair: str = "(re, im)",
+                 dtype=torch.int64) -> bool:
+    """`_check_operand` for (B, m, e, 2) words, the trailing axis the
+    ``pair`` of each element, whose shape is checked on any device."""
     if P.dim() != 4 or P.shape[-1] != 2:
-        raise ValueError(f"{fn}: expected (B, m, e, 2) (re, im) words, got "
+        raise ValueError(f"{fn}: expected (B, m, e, 2) {pair} words, got "
                          f"{tuple(P.shape)}")
-    return _check_operand(fn, P, ndim=4)
+    return _check_operand(fn, P, ndim=4, dtype=dtype)
 
 
 def qr_packed_complex_call(P, *, cfg: GivensConfig, steps,
@@ -915,12 +947,13 @@ def qr_packed_complex_call(P, *, cfg: GivensConfig, steps,
     """
     global QR_PACKED_COMPLEX_LAUNCHES
     steps = tuple(tuple(int(v) for v in s) for s in steps)
-    if _check_complex("qr_packed_complex_call", P):
+    if _check_pairs("qr_packed_complex_call", P):
         return qr_packed_complex_reference(P, cfg=cfg, steps=steps)
     B, m, e, _ = P.shape
     table = _step_table(steps, m, e, str(P.device))
     out = _packed_launch("qr_packed_complex_call", "complex_packed", P, table,
-                         (len(steps),), 1, _threads_x(e), 8, tile_b, cfg)
+                         (len(steps),), 1, _threads_x(e), 8, tile_b,
+                         _unit_args(cfg))
     QR_PACKED_COMPLEX_LAUNCHES += int(B > 0)
     return out
 
@@ -940,7 +973,7 @@ def qr_packed_complex_wavefront_call(P, piv, tgt, col, *, cfg: GivensConfig,
     """
     global QR_PACKED_COMPLEX_WAVEFRONT_LAUNCHES
     _check_layout(table_layout)
-    if _check_complex("qr_packed_complex_wavefront_call", P):
+    if _check_pairs("qr_packed_complex_wavefront_call", P):
         return qr_packed_complex_wavefront_reference(P, piv, tgt, col,
                                                      cfg=cfg)
     B, m, e, _ = P.shape
@@ -948,6 +981,111 @@ def qr_packed_complex_wavefront_call(P, piv, tgt, col, *, cfg: GivensConfig,
     S, pairs = table.shape[1:]
     out = _packed_launch("qr_packed_complex_wavefront_call", "complex_packed",
                          P, table, (S, pairs), pairs,
-                         _stage_threads(pairs, e), 8, tile_b, cfg)
+                         _stage_threads(pairs, e), 8, tile_b,
+                         _unit_args(cfg))
     QR_PACKED_COMPLEX_WAVEFRONT_LAUNCHES += int(B > 0)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The packed words on dual int32 lanes (csrc/packed_lanes.cu)
+# ---------------------------------------------------------------------------
+def qr_packed_lanes_reference(P, *, cfg: GivensConfig, steps):
+    """Plain PyTorch version of the lane kernel, on any device.
+
+    P : (B, m, e, 2) int32 (hi, lo) lane words.  Returns new lane words:
+    for each ``(k, j, col)`` step, rows k and j from ``col`` go through
+    `packed_lanes.LaneUnit.rotate_rows` and the target lead is forced to 0
+    on both lanes.
+    """
+    unit = LaneUnit(cfg)
+    P = P.clone()
+    for (k, j, col) in steps:
+        rx, ry = unit.rotate_rows(P[:, k, col:], P[:, j, col:])
+        ry[:, 0] = 0                     # structural zero (both lanes)
+        P[:, k, col:] = rx
+        P[:, j, col:] = ry
+    return P
+
+
+def qr_packed_lanes_wavefront_reference(P, piv, tgt, col, *,
+                                        cfg: GivensConfig):
+    """Plain PyTorch version of the lane wavefront kernel, on any device.
+
+    P : (B, m, e, 2) int32 lane words; piv, tgt, col : (S, Pmax) stage
+    tables.  Each stage: `LaneUnit.vector` on every pair's lead, its
+    control word replayed with `LaneUnit.rotate` across both rows, the
+    target lead forced to 0 on both lanes.  Equal to
+    `qr_packed_lanes_reference` on the flattened stage schedule.
+    """
+    unit = LaneUnit(cfg)
+
+    def stage(X, Y, lead):
+        sel = lead[..., None].to(X.dtype)              # (Pmax, e, 1)
+        xl = torch.sum(X * sel, dim=-2, dtype=X.dtype)  # (B, Pmax, 2)
+        yl = torch.sum(Y * sel, dim=-2, dtype=Y.dtype)
+        _, _, (flip, sig) = unit.vector(xl, yl)
+        return unit.rotate(X, Y, (flip[..., None], sig[..., None, :]))
+    return _wavefront_scan(P, piv, tgt, col, stage, pair="lanes")
+
+
+def qr_packed_lanes_call(P, *, cfg: GivensConfig, steps,
+                         tile_b: int | None = None):
+    """Blocked QR over dual-int32 packed lane words: one CUDA launch.
+
+    Parameters
+    ----------
+    P : (B, m, e, 2) int32, contiguous
+        The (hi, lo) halves of packed FP words
+        (`cordic_givens.packed_to_lanes`).  On a CPU tensor the plain
+        version runs instead of the kernel.
+    cfg : GivensConfig — unit configuration.
+    steps : tuple[(int, int, int), ...] — ``(pivot_row, target_row, col)``.
+    tile_b : int, optional — matrices per CUDA block (default `TILE_B`).
+
+    Returns
+    -------
+    (B, m, e, 2) int32 — ``lanes_to_packed(out) == qr_packed_call(packed)``
+    bit for bit.  A block's tiles beyond `MAX_SHARED_BYTES` are factorized
+    in place in device memory.
+    """
+    global QR_PACKED_LANES_LAUNCHES
+    steps = tuple(tuple(int(v) for v in s) for s in steps)
+    if _check_pairs("qr_packed_lanes_call", P, "(hi, lo) lane", torch.int32):
+        return qr_packed_lanes_reference(P, cfg=cfg, steps=steps)
+    B, m, e, _ = P.shape
+    table = _step_table(steps, m, e, str(P.device))
+    out = _packed_launch("qr_packed_lanes_call", "packed_lanes", P, table,
+                         (len(steps),), 1, _stage_threads(1, e), 2, tile_b,
+                         _lane_args(cfg))
+    QR_PACKED_LANES_LAUNCHES += int(B > 0)
+    return out
+
+
+def qr_packed_lanes_wavefront_call(P, piv, tgt, col, *, cfg: GivensConfig,
+                                   tile_b: int | None = None,
+                                   table_layout: str = "split"):
+    """Wavefront QR over dual-int32 packed lane words: one CUDA launch.
+
+    Parameters as `qr_packed_wavefront_call` with the (B, m, e, 2) int32
+    operand of `qr_packed_lanes_call`.
+
+    Returns
+    -------
+    (B, m, e, 2) int32 — bit-identical to `qr_packed_lanes_call` on the
+    flattened stage schedule, and through `lanes_to_packed` to
+    `qr_packed_wavefront_call`.
+    """
+    global QR_PACKED_LANES_WAVEFRONT_LAUNCHES
+    _check_layout(table_layout)
+    if _check_pairs("qr_packed_lanes_wavefront_call", P, "(hi, lo) lane",
+                    torch.int32):
+        return qr_packed_lanes_wavefront_reference(P, piv, tgt, col, cfg=cfg)
+    B, m, e, _ = P.shape
+    table = _stage_table(_stage_key(piv, tgt, col), m, e, str(P.device))
+    S, pairs = table.shape[1:]
+    out = _packed_launch("qr_packed_lanes_wavefront_call", "packed_lanes", P,
+                         table, (S, pairs), pairs, _stage_threads(pairs, e),
+                         2, tile_b, _lane_args(cfg))
+    QR_PACKED_LANES_WAVEFRONT_LAUNCHES += int(B > 0)
     return out

@@ -1,7 +1,9 @@
 """The CUDA kernels of `repro_torch` (the flat kernel, the panel factor and
 apply kernels of the packed lane, their three block-FP twins, the two
-wavefront kernels, the two complex kernels and the standalone rotator's
-three) against their plain PyTorch versions, on the GPU.
+wavefront kernels, the two complex kernels, the standalone rotator's three
+and the two dual-int32 lane kernels) against their plain PyTorch versions,
+on the GPU; and `qr_cordic` with the ``N``/``iters`` overrides on the card
+against the CPU.
 
 Marked ``gpu``: the kernels have no CPU or interpret mode, so these tests
 skip on a machine without CUDA (the `cuda` fixture decides, at run time).
@@ -19,7 +21,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
 
-from repro_torch.core.qrd import givens_schedule  # noqa: E402
+from repro_torch.core.givens import GivensUnit  # noqa: E402
+from repro_torch.core.qrd import givens_schedule, qr_cordic  # noqa: E402
 from repro_torch.kernels import cordic_givens as cg  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import qrd_blocked as qb  # noqa: E402
@@ -476,3 +479,100 @@ def test_rotator_row_api_puts_numpy_operands_on_the_card(cuda):
         for g, w in zip(got, want):
             assert g.device.type == "cuda" and w.device.type == "cpu"
             assert torch.equal(g.cpu(), w)
+
+
+#: The lane kernels' configurations: IEEE trunc and HUB at N = 26, and HUB
+#: at N = 50, the widest N, where the lanes' exact ilog2 and the int64
+#: kernels' must still agree.
+LANE_CONFIGS = [CONFIGS[0], CONFIGS[2], chip_smoke.GivensConfig(hub=True, n=50)]
+
+
+@pytest.mark.parametrize("i", range(len(LANE_CONFIGS)))
+def test_lane_kernels_bit_equal_to_plain_versions(cuda, i):
+    """B8a and B8b against their plain versions, and through
+    `lanes_to_packed` against B1 and B5a on the same words; B8b also
+    against B8a on the flattened stages."""
+    cfg = LANE_CONFIGS[i]
+    rng = np.random.default_rng(80 + i)
+    before = (qb.QR_PACKED_LANES_LAUNCHES, qb.QR_PACKED_LANES_WAVEFRONT_LAUNCHES)
+    for (m, n, cq) in ((4, 4, True), (3, 5, False), (6, 3, True)):
+        e = n + (m if cq else 0)
+        tabs = chip_smoke.stage_tables(m, n)
+        P = torch.cat([chip_smoke.encoded_words(cfg, 8, m, n, cq, rng, cuda),
+                       chip_smoke.edge_words(cfg, 8, m, e, rng, cuda)])
+        L = cg.packed_to_lanes(P)
+        flat = chip_smoke.check_plain(
+            "qr_packed_lanes", qb.qr_packed_lanes_call,
+            qb.qr_packed_lanes_reference, L, cfg=cfg,
+            steps=givens_schedule(m, n))
+        assert torch.equal(cg.lanes_to_packed(flat), qb.qr_packed_call(
+            P, cfg=cfg, steps=givens_schedule(m, n)))
+        wave = chip_smoke.check_plain(
+            "qr_packed_lanes_wavefront", qb.qr_packed_lanes_wavefront_call,
+            qb.qr_packed_lanes_wavefront_reference, L, *tabs, cfg=cfg,
+            table_layout=qb.TABLE_LAYOUTS[m % 2])
+        assert torch.equal(cg.lanes_to_packed(wave),
+                           qb.qr_packed_wavefront_call(P, *tabs, cfg=cfg))
+        assert torch.equal(wave, qb.qr_packed_lanes_call(
+            L, cfg=cfg, steps=chip_smoke.flat_order(m, n)))
+    assert qb.QR_PACKED_LANES_LAUNCHES == before[0] + 6
+    assert qb.QR_PACKED_LANES_WAVEFRONT_LAUNCHES == before[1] + 3
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "device"])
+def test_lane_kernels_ragged_batch_and_tile_modes(cuda, monkeypatch, shared):
+    """Ragged batches in blocks of 1, 2 and 4, with the tiles in shared
+    memory and (the limit lowered) in device memory."""
+    if not shared:
+        monkeypatch.setattr(qb, "MAX_SHARED_BYTES", 0)
+    cfg = CONFIGS[3]
+    L = cg.packed_to_lanes(chip_smoke.edge_words(
+        cfg, 5, 6, 10, np.random.default_rng(85), cuda))
+    for tile_b in (1, 2, 4):
+        chip_smoke.check_plain("qr_packed_lanes", qb.qr_packed_lanes_call,
+                               qb.qr_packed_lanes_reference, L, cfg=cfg,
+                               steps=givens_schedule(6, 4), tile_b=tile_b)
+        chip_smoke.check_plain("qr_packed_lanes_wavefront",
+                               qb.qr_packed_lanes_wavefront_call,
+                               qb.qr_packed_lanes_wavefront_reference, L,
+                               *chip_smoke.stage_tables(6, 4), cfg=cfg,
+                               tile_b=tile_b)
+
+
+def test_lanes_route_at_128_and_through_ops(cuda):
+    """At 128 x 128 with Q the lane tile (256 KiB) lives in device memory
+    and equals B1 and B5a; `ops.qr_packed` and `ops.qr_packed_wavefront`
+    with ``lanes=True`` give the int64 route's words."""
+    cfg = CONFIGS[2]
+    rng = np.random.default_rng(86)
+    P = chip_smoke.encoded_words(cfg, 2, 128, 128, True, rng, cuda)
+    L = cg.packed_to_lanes(P)
+    assert L[0].numel() * 4 > qb.MAX_SHARED_BYTES
+    steps, tabs = givens_schedule(128, 128), chip_smoke.stage_tables(128, 128)
+    assert torch.equal(cg.lanes_to_packed(qb.qr_packed_lanes_call(
+        L, cfg=cfg, steps=steps)), qb.qr_packed_call(P, cfg=cfg, steps=steps))
+    assert torch.equal(cg.lanes_to_packed(qb.qr_packed_lanes_wavefront_call(
+        L, *tabs, cfg=cfg)), qb.qr_packed_wavefront_call(P, *tabs, cfg=cfg))
+    P = chip_smoke.encoded_words(cfg, 7, 8, 6, True, rng, cuda)
+    before = qb.QR_PACKED_LANES_LAUNCHES
+    got = ops.qr_packed(P, cfg=cfg, steps=givens_schedule(8, 6), lanes=True)
+    assert qb.QR_PACKED_LANES_LAUNCHES == before + 1
+    assert torch.equal(got, ops.qr_packed(P, cfg=cfg,
+                                          steps=givens_schedule(8, 6)))
+    stages = chip_smoke.sameh_kuck_schedule(8, 6)
+    assert torch.equal(ops.qr_packed_wavefront(P, cfg=cfg, stages=stages,
+                                               lanes=True),
+                       ops.qr_packed_wavefront(P, cfg=cfg, stages=stages))
+
+
+def test_qr_cordic_overrides_on_gpu_equal_cpu(cuda):
+    """`qr_cordic` with the N / iters overrides (its plain loop, on the
+    card) gives the CPU's words; the JAX package's are held on the CPU."""
+    A = np.random.default_rng(87).normal(size=(3, 4, 4))
+    unit = GivensUnit(CONFIGS[2])
+    Qg, Rg = qr_cordic(torch.tensor(A, device=cuda), unit, N=28, iters=22)
+    Qc, Rc = qr_cordic(torch.tensor(A), unit, N=28, iters=22)
+    assert Qg.device.type == "cuda"
+    assert torch.equal(Qg.cpu(), Qc) and torch.equal(Rg.cpu(), Rc)
+    Qp, _ = qr_cordic(torch.tensor(A, device=cuda), unit, None, None)
+    assert Qp is not None and not torch.equal(Qp.cpu(), Qc)

@@ -6,6 +6,10 @@
 * `QRDEngine(device='cpu', backend='cordic_pallas')` gives Q and R
   bit-identical to `repro.qrd.QRDEngine(backend='cordic_pallas')`, and
   `solve` agrees to 1e-12 (float64 summation order only: R is bit-equal).
+* The significand-width and CORDIC-depth overrides ``N``/``iters`` (the
+  paper's Fig. 9 sweep) of `qr_cordic`, `qr_cordic_complex` and the
+  unit's methods give the JAX package's words, in its positional order;
+  `cordic.cordic_gain` and `cordic.vectoring_rotation` its values.
 
 Inputs are made with numpy from a seed.  The JAX reference is
 `repro.core.qrd.qr_cordic` driven by its own unit with `rotate_rows`
@@ -26,11 +30,13 @@ import pytest
 import torch
 
 from repro import qrd as japi
+from repro.core import cordic as jcordic
 from repro.core import qrd as jq
 from repro.core.givens import GivensConfig as JConfig
 from repro.core.givens import GivensUnit as JUnit
 
 from repro_torch import qrd as tapi
+from repro_torch.core import cordic as tcordic
 from repro_torch.core import qrd as tq
 from repro_torch.core.givens import GivensConfig, GivensUnit
 
@@ -175,3 +181,109 @@ def test_engine_ragged_and_leading_batch_shapes():
     Qt, Rt = _engine("ieee-rne", tile_b=2)(A)
     _bits_equal(Qj, Qt)
     _bits_equal(Rj, Rt)
+
+
+# ---------------------------------------------------------------------------
+# the N / iters overrides
+# ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def _jitted(cfg, method, N, iters):
+    """A JAX unit method with its ``N``/``iters`` overrides bound, jitted
+    (one compile per operand shape)."""
+    return jax.jit(functools.partial(getattr(JUnit(cfg), method), N=N,
+                                     iters=iters))
+
+
+class _JitOverrideUnit(JUnit):
+    """The JAX unit whose row rotations run its own code with the caller's
+    overrides, jitted once per (overrides, row width)."""
+
+    def rotate_rows(self, row_x, row_y, N=None, iters=None):
+        return _jitted(self.cfg, "rotate_rows", N, iters)(row_x, row_y)
+
+    def rotate_rows_complex(self, row_x, row_y, N=None, iters=None):
+        return _jitted(self.cfg, "rotate_rows_complex", N, iters)(row_x,
+                                                                  row_y)
+
+
+#: The overrides of the sweep point held against the JAX package: a HUB
+#: unit configured at N = 26 run at N = 28 with 22 micro-rotations.
+OVERRIDE = dict(N=28, iters=22)
+A_OVERRIDE = _matrices(21, (3, 4, 4))
+
+
+def test_qr_cordic_overrides_bit_equal_to_jax():
+    jc, tc = _configs("hub-full")
+    Qj, Rj = jq.qr_cordic(A_OVERRIDE, _JitOverrideUnit(jc), **OVERRIDE)
+    unit = GivensUnit(tc)
+    Qt, Rt = tq.qr_cordic(torch.tensor(A_OVERRIDE), unit, **OVERRIDE)
+    _bits_equal(Qj, Qt)
+    _bits_equal(Rj, Rt)
+    # overrides given as a numpy integer and a 0-d tensor, positionally
+    Qp, Rp = tq.qr_cordic(A_OVERRIDE, unit, np.int64(28), torch.tensor(22))
+    assert torch.equal(Qp, Qt) and torch.equal(Rp, Rt)
+    Qd, _ = tq.qr_cordic(A_OVERRIDE, unit)   # the overrides change the words
+    assert not torch.equal(Qd, Qt)
+
+
+def test_qr_cordic_positional_none_returns_q():
+    """`qr_cordic(A, unit, None, None)` binds N and iters, as the JAX
+    package does, and returns Q."""
+    jc, tc = _configs("hub-full")
+    Qj, Rj = jq.qr_cordic(A_OVERRIDE, _JitOverrideUnit(jc), None, None)
+    Qt, Rt = tq.qr_cordic(A_OVERRIDE, GivensUnit(tc), None, None)
+    assert Qt is not None
+    _bits_equal(Qj, Qt)
+    _bits_equal(Rj, Rt)
+
+
+def test_qr_cordic_complex_overrides_bit_equal_to_jax():
+    jc, tc = _configs("hub-full")
+    rng = np.random.default_rng(22)
+    A = A_OVERRIDE + 1j * rng.normal(size=A_OVERRIDE.shape)
+    Qj, Rj = jq.qr_cordic_complex(A, _JitOverrideUnit(jc), **OVERRIDE)
+    Qt, Rt = tq.qr_cordic_complex(torch.tensor(A), GivensUnit(tc), **OVERRIDE)
+    for want, got in ((Qj, Qt), (Rj, Rt)):
+        _bits_equal(np.real(want), got.real)
+        _bits_equal(np.imag(want), got.imag)
+    Qp, _ = tq.qr_cordic_complex(A, GivensUnit(tc), None, None)
+    assert Qp is not None and not torch.equal(Qp, Qt)
+
+
+def test_unit_methods_take_overrides():
+    """`vector`, `rotate` and `rotate_rows` with N and iters, against the
+    JAX unit's own."""
+    jc, tc = _configs("ieee-rne")
+    unit = GivensUnit(tc)
+    rows = unit.encode(torch.tensor(_matrices(24, (2, 16, 5))))
+    x, y = rows[0], rows[1]
+    jx, jy = (jax.numpy.asarray(r.numpy()) for r in (x, y))
+    want = _jitted(jc, "vector", 28, 22)(jx[:, 0], jy[:, 0])
+    r, y0, (flip, sig) = unit.vector(x[:, 0], y[:, 0], N=28, iters=22)
+    for w, g in zip((want[0], want[1], *want[2]), (r, y0, flip, sig)):
+        np.testing.assert_array_equal(np.asarray(w), g.numpy())
+    st = (flip[:, None], sig[:, None])
+    want = _jitted(jc, "rotate", 28, 22)(jx[:, 1:], jy[:, 1:],
+                                         (want[2][0][:, None],
+                                          want[2][1][:, None]))
+    for w, g in zip(want, unit.rotate(x[:, 1:], y[:, 1:], st, 28, 22)):
+        np.testing.assert_array_equal(np.asarray(w), g.numpy())
+    want = _jitted(jc, "rotate_rows", 28, 22)(jx, jy)
+    for w, g in zip(want, unit.rotate_rows(x, y, N=28, iters=22)):
+        np.testing.assert_array_equal(np.asarray(w), g.numpy())
+
+
+@pytest.mark.parametrize("hub", [False, True], ids=["conv", "hub"])
+def test_cordic_gain_and_vectoring_rotation_equal_jax(hub):
+    for k in (0, 1, 22, 24, 48):
+        assert tcordic.cordic_gain(k) == jcordic.cordic_gain(k)
+    rng = np.random.default_rng(25 + hub)
+    lim = 2 ** 27
+    xl, yl = (rng.integers(-lim, lim, size=6) for _ in range(2))
+    xr, yr = (rng.integers(-lim, lim, size=(6, 4)) for _ in range(2))
+    xl[0], yl[0] = -lim, 5                      # a flip
+    want = jcordic.vectoring_rotation(xl, yl, xr, yr, 24, 28, hub)
+    got = tcordic.vectoring_rotation(*(torch.tensor(v) for v in
+                                       (xl, yl, xr, yr)), 24, 28, hub)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(np.asarray(w), g.numpy())
