@@ -361,29 +361,36 @@ def bound(cfg, B, m, n, e):
 
 
 def panel_route_work(B, m, n, e, pw=PANEL_N, lane="packed"):
-    """Launches, rotated elements and bytes of each panel kernel of
-    ``lane`` in one panel-route call on B working tiles of m x e (n columns
-    annihilated).  Bytes: each input word read once and each output word
-    written once (the panel or trailing region both ways, the (B, S)
-    control words)."""
+    """Launches, rotated elements, bytes, steps and stages of each panel
+    kernel of ``lane`` in one panel-route call on B working tiles of m x e
+    (n columns annihilated).  Bytes: each input word read once and each
+    output word written once (the panel or trailing region both ways, the
+    (B, S) control words).  Steps: the dependent steps of the launches in
+    step order (`ops.panel_steps`); stages: the levels the packed kernels
+    run them in (`ops.panel_stages`)."""
     factor, apply_ = LANES[lane]
     wb = WORD_BYTES[lane]
-    work = {name: dict(launches=0, elements=0, bytes=0)
+    work = {name: dict(launches=0, elements=0, bytes=0, steps=0, stages=0)
             for name in (factor, apply_)}
     for c0 in range(0, min(n, m - 1), pw):
         nc, mr = min(pw, n - c0), m - c0
         w = e - c0 - nc
         cols = range(min(mr - 1, nc))
         S = sum(mr - 1 - c for c in cols)
+        stages = ops.panel_stages(mr, nc)[1].shape[0]
         f = work[factor]
         f["launches"] += 1
         f["elements"] += B * sum((mr - 1 - c) * 2 * (nc - c) for c in cols)
         f["bytes"] += B * (2 * mr * nc + 2 * S) * wb
+        f["steps"] += S
+        f["stages"] += stages
         if w > 0:
             a = work[apply_]
             a["launches"] += 1
             a["elements"] += B * S * 2 * w
             a["bytes"] += B * (2 * mr * w + 2 * S) * wb
+            a["steps"] += S
+            a["stages"] += stages
     return work
 
 
@@ -417,27 +424,34 @@ def compare(what, got, want):
                  f"kernel {g[bad].item():#x} plain {w[bad].item():#x}")
 
 
-def check_panel_sweep(P, cfg, n_cols, pw, tile_b=None):
-    """The panel route on the card with every launch held against its plain
-    version on the same inputs, and the result against the flat kernel:
-    bit-equal or fail."""
+def check_panel_sweep(P, cfg, n_cols, pw, tile_b=None, plain_panels=None):
+    """The panel route on the card with every launch (or the launches of
+    the first ``plain_panels`` panels) held against its plain version on
+    the same inputs, and the result against the flat kernel: bit-equal or
+    fail."""
     m, e = P.shape[-2:]
     W = P.clone()
     what = f"{cfg} at {tuple(P.shape)}, pw={pw}, tile_b={tile_b}"
-    for c0 in range(0, min(n_cols, m - 1), pw):
+    for i, c0 in enumerate(range(0, min(n_cols, m - 1), pw)):
+        plain = plain_panels is None or i < plain_panels
         nc = min(pw, n_cols - c0)
         piv, tgt, col = ops.panel_steps(m - c0, nc)
         tile = W[:, c0:, c0:c0 + nc]
-        want = qb.panel_factor_packed_reference(tile, piv, tgt, col, cfg=cfg)
+        if plain:
+            want = qb.panel_factor_packed_reference(tile, piv, tgt, col,
+                                                    cfg=cfg)
         got = qb.panel_factor_packed_call(tile, piv, tgt, col, cfg=cfg,
                                           tile_b=tile_b)
-        compare(f"panel_factor_packed, {what}, panel {c0}", got, want)
+        if plain:
+            compare(f"panel_factor_packed, {what}, panel {c0}", got, want)
         if c0 + nc < e:
             T = W[:, c0:, c0 + nc:]
-            want = qb.panel_apply_packed_reference(T, piv, tgt, got[1], got[2],
-                                                   cfg=cfg)
+            if plain:
+                want = qb.panel_apply_packed_reference(T, piv, tgt, got[1],
+                                                       got[2], cfg=cfg)
             qb.panel_apply_packed_call(T, piv, tgt, got[1], got[2], cfg=cfg)
-            compare(f"panel_apply_packed, {what}, panel {c0}", T, want)
+            if plain:
+                compare(f"panel_apply_packed, {what}, panel {c0}", T, want)
     flat = qb.qr_packed_call(P.contiguous(), cfg=cfg,
                              steps=givens_schedule(m, n_cols))
     compare(f"panel route against qr_packed, {what}", W, flat)
@@ -612,7 +626,10 @@ def tiled_timing(path, eng, A, work, repeats=5, lane="packed"):
     ms = {name: statistics.median(v) for name, v in totals.items()}
     wall_ms = statistics.median(walls) * 1e3
     print(f"timing {path} at {tuple(A.shape)}: " + ", ".join(
-        f"{name} {t:.3f} ms per engine call" for name, t in ms.items())
+        f"{name} {t:.3f} ms per engine call ({work[name]['steps']} steps"
+        + (f" run in {work[name]['stages']} stages)" if lane == "packed"
+           else " run in step order)")
+        for name, t in ms.items())
         + f"; engine call {wall_ms:.3f} ms host wall (median of {repeats})",
         flush=True)
     return ms, wall_ms

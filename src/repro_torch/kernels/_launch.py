@@ -29,12 +29,13 @@ LANE_ARGTYPES = [C_INT] * 10 + [ctypes.c_uint] * 2 + [C_INT, C_PTR]
 #: The launch functions of each source: their C argument types.
 SIGNATURES = {
     "qr_packed_launch": [C_PTR] * 3 + [C_INT] * 7 + UNIT_ARGTYPES,
-    "panel_factor_launch": ([C_PTR, C_LL, C_LL] + [C_INT] * 3
-                            + [C_PTR] * 3 + [C_INT] + [C_PTR] * 2
-                            + [C_INT] * 2 + UNIT_ARGTYPES),
-    "panel_apply_launch": ([C_PTR, C_LL, C_LL] + [C_INT] * 2
-                           + [C_PTR] * 2 + [C_INT] + [C_PTR] * 2
-                           + [C_INT] + UNIT_ARGTYPES),
+    # (P, sb, ld, B, mr, pw | w, stage table, stages, pairs, S, flip, sig, ...)
+    "panel_factor_launch": ([C_PTR, C_LL, C_LL] + [C_INT] * 3 + [C_PTR]
+                            + [C_INT] * 3 + [C_PTR] * 2 + [C_INT] * 2
+                            + UNIT_ARGTYPES),
+    "panel_apply_launch": ([C_PTR, C_LL, C_LL] + [C_INT] * 3 + [C_PTR]
+                           + [C_INT] * 3 + [C_PTR] * 2 + [C_INT]
+                           + UNIT_ARGTYPES),
     # block-FP launches end in (iters, hub, comp, stream)
     "qr_blockfp_launch": [C_PTR] * 3 + [C_INT] * 9 + [C_PTR],
     "panel_factor_blockfp_launch": ([C_PTR, C_LL, C_LL] + [C_INT] * 3

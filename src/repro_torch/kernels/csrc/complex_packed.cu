@@ -56,7 +56,8 @@ struct ComplexStage {
   int ld;
   const UnitParams* u;
   i64* ctrl;
-  __device__ __forceinline__ void lead(int p, int k, int j, int c) const {
+  __device__ __forceinline__ void lead(int, int p, int k, int j,
+                                       int c) const {
     const i64* x = T + (k * ld + c) * 2;
     const i64* y = T + (j * ld + c) * 2;
     i64* w = ctrl + kCtrlWords * p;

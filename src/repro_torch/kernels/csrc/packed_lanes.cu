@@ -66,7 +66,8 @@ struct LaneStage {
   int ld;
   const Params* u;
   u32* ctrl;
-  __device__ __forceinline__ void lead(int p, int k, int j, int c) const {
+  __device__ __forceinline__ void lead(int, int p, int k, int j,
+                                       int c) const {
     W x, y, sig;
     int m_exp;
     u32 flip;

@@ -1,6 +1,6 @@
-// The step loop shared by the packed-word QR kernels (qr_packed.cu and the
-// panel factorization of panel_packed.cu): every schedule step on a tile
-// that one block holds, in shared memory or in device memory.
+// The step loop of the packed-word flat QR kernel (qr_packed.cu): every
+// schedule step on a tile that one block holds, in shared memory or in
+// device memory; and the tile copy it shares with panel_packed.cu.
 #pragma once
 
 #include "givens_unit.cuh"

@@ -1,10 +1,12 @@
-// The stage loop shared by the wavefront kernels (wavefront.cu) and the
-// complex kernels (complex_packed.cu): every stage of a schedule on a tile
-// that one block holds, in shared memory or in device memory.
+// The stage loop shared by the wavefront kernels (wavefront.cu), the
+// complex kernels (complex_packed.cu), the lane kernels (packed_lanes.cu)
+// and the panel factorization (panel_packed.cu): every stage of a schedule
+// on a tile that one block holds, in shared memory or in device memory.
 //
 // A stage is a set of rotations on disjoint row pairs (a Sameh-Kuck stage,
-// or a single step of a step-serial schedule), so all its pairs run at
-// once and the block waits at two barriers a stage, not a rotation:
+// a level of a levelized step-serial schedule, or a single step of one),
+// so all its pairs run at once and the block waits at two barriers a
+// stage, not a rotation:
 //  1. one thread per pair reads the pair's lead words and computes the
 //     control words, which it keeps in the block's shared memory;
 //  2. the threads of the block spread over (pair, column) and replay the
@@ -29,7 +31,8 @@ struct Tables {
 };
 
 // Runs every stage on the tile that `body` addresses.  Body provides
-//   lead(p, k, j, c)          control words of pair p (rows k, j, column c)
+//   lead(s, p, k, j, c)       control words of pair p of stage s (rows k,
+//                             j, column c)
 //   element(p, k, j, c, idx)  pair p's control words replayed on column idx
 // Every thread of the block calls this, `live` or not (the barriers).
 template <class Body>
@@ -42,7 +45,7 @@ __device__ __forceinline__ void run_stages(const Tables& t, int m, int e,
     if (live) {
       for (int p = threadIdx.x; p < t.P; p += blockDim.x) {
         const int k = __ldg(piv + p);
-        if (k < m) body.lead(p, k, __ldg(tgt + p), __ldg(col + p));
+        if (k < m) body.lead(s, p, k, __ldg(tgt + p), __ldg(col + p));
       }
     }
     __syncthreads();  // control words written; lead words read

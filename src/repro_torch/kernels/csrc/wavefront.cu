@@ -49,7 +49,8 @@ struct PackedStage {
   int ld;
   const UnitParams* u;
   i64* ctrl;
-  __device__ __forceinline__ void lead(int p, int k, int j, int c) const {
+  __device__ __forceinline__ void lead(int, int p, int k, int j,
+                                       int c) const {
     i64 x, y, m_exp;
     gru::to_fixed(T[k * ld + c], T[j * ld + c], *u, x, y, m_exp);
     gru::vectoring(x, y, *u, ctrl[2 * p], ctrl[2 * p + 1]);
@@ -69,7 +70,8 @@ struct BlockfpStage {
   int ld;
   const bfp::Params* u;
   i32* ctrl;
-  __device__ __forceinline__ void lead(int p, int k, int j, int c) const {
+  __device__ __forceinline__ void lead(int, int p, int k, int j,
+                                       int c) const {
     bfp::vector_lead(T[k * ld + c], T[j * ld + c], *u, ctrl[2 * p],
                      ctrl[2 * p + 1]);
   }

@@ -46,7 +46,8 @@ from ._launch import resolve_device
 
 __all__ = ["vectoring_fixed", "rotation_fixed", "givens_rotate_rows_fixed",
            "givens_rotate_rows_fused", "qr_packed", "qr_packed_wavefront", "qr_packed_complex",
-           "qr_packed_complex_wavefront", "panel_steps", "qr_packed_panel",
+           "qr_packed_complex_wavefront", "panel_steps", "panel_stages",
+           "qr_packed_panel",
            "givens_block_apply", "givens_block_apply_wavefront",
            "givens_block_apply_panel", "rls_block_steps"]
 
@@ -343,6 +344,28 @@ def panel_steps(mr: int, ncols: int):
     tables = np.asarray(trips, np.int32).reshape(-1, 3).T.copy()
     tables.setflags(write=False)
     return tables[0], tables[1], tables[2]
+
+
+@lru_cache(maxsize=SCHEDULE_CACHE_SIZE)
+def panel_stages(mr: int, ncols: int):
+    """The stages of `panel_steps` (memoized, bounded), as the panel kernels
+    run them.
+
+    Each step goes one level past the last steps on its two rows
+    (`qrd_blocked.levelize_steps`), so a stage's pairs touch disjoint rows
+    and every row meets its steps in column-major order: the words are
+    those of the step order.  ``mr + min(mr - 1, ncols) - 2`` stages of at
+    most ``ncols`` pairs, against ``panel_steps``' ~``ncols * mr`` steps.
+
+    Returns
+    -------
+    (tables, step) — read-only int32 numpy arrays: the (3, S', P) pivot,
+    target and column stage tables, padded with pivot = target = ``mr``
+    and column 0 (the layout of `_stage_tables`), and the (S', P) index of
+    each pair's step in `panel_steps` (-1 where padded).
+    """
+    lv = qb.levelize_steps(*panel_steps(mr, ncols), mr)
+    return lv[:3], lv[3]
 
 
 def qr_packed_panel(P, *, cfg, n_cols, panel_n=8, tile_b=None):

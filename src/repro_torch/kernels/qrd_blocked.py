@@ -11,9 +11,10 @@ wrappers, launch counters and plain PyTorch versions.
   (``csrc/panel_packed.cu``) replace their namesakes of the JAX package:
   the panel route's factorization of an mr x pw panel, exporting each
   step's control word ``(flip, sigma)``, and the replay of those words over
-  the trailing columns.  Bit-identical to `panel_factor_packed_reference`
-  and `panel_apply_packed_reference`, loops of `GivensUnit.vector` and
-  `GivensUnit.rotate`.
+  the trailing columns.  Both run the panel's steps in stages of disjoint
+  row pairs (`levelize_steps`).  Bit-identical to
+  `panel_factor_packed_reference` and `panel_apply_packed_reference`,
+  loops of `GivensUnit.vector` and `GivensUnit.rotate` in step order.
 * `qr_blockfp_call`, `panel_factor_blockfp_call` and
   `panel_apply_blockfp_call` (``csrc/blockfp.cu``) replace their namesakes
   of the JAX package on the int32 block-FP datapath: the same three jobs on
@@ -87,10 +88,16 @@ __all__ = ["qr_packed_call", "qr_packed_reference", "QR_PACKED_LAUNCHES",
            "qr_packed_lanes_wavefront_call",
            "qr_packed_lanes_wavefront_reference",
            "QR_PACKED_LANES_WAVEFRONT_LAUNCHES", "TABLE_LAYOUTS",
-           "TILE_B", "MAX_SHARED_BYTES", "kernel_params"]
+           "TILE_B", "PANEL_TILE_B", "MAX_SHARED_BYTES", "kernel_params",
+           "levelize_steps"]
 
 #: Matrices per CUDA block when the caller gives no ``tile_b``.
 TILE_B = 1
+
+#: Panels per CUDA block of the packed panel factorization when the caller
+#: gives no ``tile_b`` (of 1, 2 and 4, the fastest at the TSQR leaves' and
+#: tree nodes' panels on an H100).
+PANEL_TILE_B = 2
 
 #: Dynamic shared memory one block may use on Hopper (227 KB).  The packed
 #: flat, wavefront and complex kernels factorize a block's tiles beyond it
@@ -213,9 +220,9 @@ def _lane_args(cfg: GivensConfig):
 
 
 def _threads_x(e: int) -> int:
-    """Threads of a row of the step loop `gru::factor_tile` (both the flat
-    kernel and the panel factorization): one per element up to a warp,
-    then whole warps, at most 256."""
+    """Threads of a row of the step loops `gru::factor_tile` (the flat
+    kernel) and `bfp::factor_tile`: one per element up to a warp, then
+    whole warps, at most 256."""
     return e if e <= 32 else min(-(-e // 32) * 32, 256)
 
 
@@ -260,13 +267,14 @@ def _host_table(t) -> tuple:
     ints."""
     if isinstance(t, torch.Tensor):
         t = t.cpu()
+    if isinstance(t, (torch.Tensor, np.ndarray)):
+        return tuple(t.tolist())
     return tuple(int(v) for v in t)
 
 
-@lru_cache(maxsize=SCHEDULE_CACHE_SIZE)
-def _panel_tables(rows, cols, mr: int, pw: int, device: str):
-    """Validated device copies of panel-local step tables: rows is a tuple
-    of (S,) row tables, cols the column table or None."""
+def _check_panel_steps(rows, cols, mr: int, pw: int):
+    """Panel-local step tables in range: rows is a tuple of (S,) row tables,
+    cols the column table or None; anything else raises ValueError."""
     S = len(rows[0])
     if any(len(t) != S for t in rows) or (cols is not None and len(cols) != S):
         raise ValueError("panel step tables differ in length")
@@ -276,8 +284,68 @@ def _panel_tables(rows, cols, mr: int, pw: int, device: str):
                 cols is not None and not 0 <= cols[s] < pw):
             raise ValueError(f"panel step {s} ({k}, {j}) is out of range for "
                              f"a panel of {mr} x {pw}")
+
+
+@lru_cache(maxsize=SCHEDULE_CACHE_SIZE)
+def _panel_tables(rows, cols, mr: int, pw: int, device: str):
+    """Validated device copies of panel-local step tables (the block-FP
+    panel kernels take them in step order)."""
+    _check_panel_steps(rows, cols, mr, pw)
     return tuple(torch.tensor(t, dtype=torch.int32, device=device)
                  for t in rows + ((cols,) if cols is not None else ()))
+
+
+def levelize_steps(piv, tgt, col, m: int):
+    """Stage tables of a step-serial schedule on ``m`` rows.
+
+    Step ``s`` on rows ``piv[s]`` and ``tgt[s]`` goes to level ``1 +`` the
+    larger of the levels of the last earlier steps on those two rows.  The
+    steps of one level then touch disjoint rows, and every row meets its
+    steps in their original order, so running the levels in turn, the
+    pairs of a level at once, gives every word and every control word of
+    the step order, bit for bit.  The column-major schedule of an mr x nc
+    panel has ``mr + min(mr - 1, nc) - 2`` levels.
+
+    Parameters
+    ----------
+    piv, tgt : sequences of ints, the (S,) pivot and target rows.
+    col : sequence of ints or None, the (S,) lead columns (None: zeros).
+    m : int, the rows of the tile; padded pairs name row ``m``.
+
+    Returns
+    -------
+    A read-only (4, S', P) int32 array: pivot rows, target rows, lead
+    columns and each pair's step index, one row per level, the pairs of a
+    level in step order, padded to the widest level with pivot = target =
+    ``m``, column 0 and step -1 (the layout of `ops._stage_tables`, plus the
+    step indices).
+    """
+    last = {}
+    levels = []
+    for s, (k, j) in enumerate(zip(piv, tgt)):
+        lv = max(last.get(k, 0), last.get(j, 0))
+        last[k] = last[j] = lv + 1
+        if lv == len(levels):
+            levels.append([])
+        levels[lv].append(s)
+    out = np.zeros((4, len(levels), max(map(len, levels), default=0)),
+                   np.int32)
+    out[:2] = m
+    out[3] = -1
+    for lv, steps in enumerate(levels):
+        for p, s in enumerate(steps):
+            out[:, lv, p] = (piv[s], tgt[s], 0 if col is None else col[s], s)
+    out.setflags(write=False)
+    return out
+
+
+@lru_cache(maxsize=SCHEDULE_CACHE_SIZE)
+def _panel_stage_table(rows, cols, mr: int, pw: int, device: str):
+    """Validated (4, S', P) int32 device copy of the levelized panel-local
+    step tables (`levelize_steps`): rows is a tuple of (S,) row tables,
+    cols the column table or None."""
+    _check_panel_steps(rows, cols, mr, pw)
+    return torch.tensor(levelize_steps(*rows, cols, mr), device=device)
 
 
 def qr_packed_call(P, *, cfg: GivensConfig, steps, tile_b: int | None = None):
@@ -343,15 +411,20 @@ def panel_factor_packed_call(P, piv, tgt, col, *, cfg: GivensConfig,
     cfg : GivensConfig
         Unit configuration.
     tile_b : int, optional
-        Panels per CUDA block; by default as many as fill one warp and fit
-        in `MAX_SHARED_BYTES` of shared memory, which the block's panels
-        must not exceed (ValueError).
+        Panels per CUDA block; by default `PANEL_TILE_B`, capped so that
+        the block's panels and control words fit in `MAX_SHARED_BYTES` of
+        shared memory, which an explicit one must not exceed (ValueError).
 
     Returns
     -------
     (P, flip, sig) — ``P`` factored in place (upper-triangular head over
-    zeros); ``flip``/``sig`` (B, S) int64, the control words replayable over
-    the trailing columns with `panel_apply_packed_call`.
+    zeros); ``flip``/``sig`` (B, S) int64 in step order, the control words
+    replayable over the trailing columns with `panel_apply_packed_call`.
+
+    The kernel runs the steps in stages of disjoint row pairs
+    (`levelize_steps`, derived on the host and cached): one thread per
+    pair vectors its lead once, the panel's threads replay the control
+    word across the pair's rows; the words equal the step order's.
     """
     global PANEL_FACTOR_LAUNCHES
     if _check_operand("panel_factor_packed_call", P):
@@ -360,23 +433,38 @@ def panel_factor_packed_call(P, piv, tgt, col, *, cfg: GivensConfig,
         P.copy_(out)
         return P, flip, sig
     B, mr, pw = P.shape
-    tables = _panel_tables((_host_table(piv), _host_table(tgt)),
-                           _host_table(col), mr, pw, str(P.device))
-    S = tables[0].shape[0]
-    threads_x = _threads_x(pw)
+    rows = (_host_table(piv), _host_table(tgt))
+    table = _panel_stage_table(rows, _host_table(col), mr, pw, str(P.device))
+    S = len(rows[0])
+    stages, pairs = table.shape[1:]
+    threads_x = _stage_threads(pairs, pw)
     tile_b = _shared_tile_b(tile_b, "panel_factor_packed_call", threads_x,
-                            mr * pw * 8, max(1, 32 // threads_x))
+                            (mr * pw + 2 * pairs) * 8, PANEL_TILE_B)
     flip = torch.empty((B, S), dtype=torch.int64, device=P.device)
     sig = torch.empty_like(flip)
     if B == 0 or S == 0:
         return P, flip, sig
     err = _lib("panel_packed").panel_factor_launch(
-        P.data_ptr(), P.stride(0), P.stride(1), B, mr, pw,
-        *(t.data_ptr() for t in tables), S, flip.data_ptr(), sig.data_ptr(),
-        tile_b, threads_x, *_unit_args(cfg), _stream(P))
+        P.data_ptr(), P.stride(0), P.stride(1), B, mr, pw, table.data_ptr(),
+        stages, pairs, S, flip.data_ptr(), sig.data_ptr(), tile_b, threads_x,
+        *_unit_args(cfg), _stream(P))
     _check_launch("panel_packed", err)
     PANEL_FACTOR_LAUNCHES += 1
     return P, flip, sig
+
+
+def _apply_cols(fn: str, mr: int, w: int, pairs: int) -> int:
+    """Trailing columns per block of the panel apply kernel, whose threads
+    are (column, pair slot): one column per lane of a warp, fewer when the
+    region is narrower, the block would exceed 1024 threads or its mr rows
+    would exceed `MAX_SHARED_BYTES` (at least one column must fit, else
+    ValueError)."""
+    cols = min(32, w, 1024 // pairs, MAX_SHARED_BYTES // (mr * 8))
+    if cols < 1:
+        raise ValueError(f"{fn}: {mr} rows and {pairs} pairs a stage do not "
+                         f"fit one block ({MAX_SHARED_BYTES} B of shared "
+                         f"memory, 1024 threads)")
+    return cols
 
 
 def panel_apply_packed_call(T, piv, tgt, flip, sig, *, cfg: GivensConfig):
@@ -390,21 +478,25 @@ def panel_apply_packed_call(T, piv, tgt, flip, sig, *, cfg: GivensConfig):
         be a view with any batch and row strides but unit column stride.
         On a CPU tensor the plain version runs instead.
     piv, tgt : (S,) int — panel-local step row tables.
-    flip, sig : (B, S) int64 — control words from `panel_factor_packed_call`.
+    flip, sig : (B, S) int64 — control words from `panel_factor_packed_call`,
+        in step order.
 
     Returns
     -------
-    ``T``, updated in place.  Every column is rotated on its own, so one
-    CUDA thread owns one column for all S steps.
+    ``T``, updated in place.  The kernel runs the steps in the stages of
+    `levelize_steps`: a CUDA block holds up to 32 trailing columns of one
+    matrix in shared memory, its threads spread over (column, pair slot),
+    one barrier a stage; the words equal the step order's.
     """
     global PANEL_APPLY_LAUNCHES
     if _check_operand("panel_apply_packed_call", T):
         T.copy_(panel_apply_packed_reference(T, piv, tgt, flip, sig, cfg=cfg))
         return T
     B, mr, w = T.shape
-    piv_t, tgt_t = _panel_tables((_host_table(piv), _host_table(tgt)), None,
-                                 mr, w, str(T.device))
-    S = piv_t.shape[0]
+    rows = (_host_table(piv), _host_table(tgt))
+    table = _panel_stage_table(rows, None, mr, 0, str(T.device))  # no columns
+    S = len(rows[0])
+    stages, pairs = table.shape[1:]
     if (flip.shape != (B, S) or sig.shape != (B, S) or flip.device != T.device
             or sig.device != T.device or not flip.is_contiguous()
             or not sig.is_contiguous() or flip.dtype != torch.int64
@@ -413,10 +505,10 @@ def panel_apply_packed_call(T, piv, tgt, flip, sig, *, cfg: GivensConfig):
                          f"tensors on {T.device}")
     if B == 0 or S == 0 or w == 0:
         return T
-    threads = min(-(-w // 32) * 32, 128)
+    cols = _apply_cols("panel_apply_packed_call", mr, w, pairs)
     err = _lib("panel_packed").panel_apply_launch(
-        T.data_ptr(), T.stride(0), T.stride(1), B, w, piv_t.data_ptr(),
-        tgt_t.data_ptr(), S, flip.data_ptr(), sig.data_ptr(), threads,
+        T.data_ptr(), T.stride(0), T.stride(1), B, mr, w, table.data_ptr(),
+        stages, pairs, S, flip.data_ptr(), sig.data_ptr(), cols,
         *_unit_args(cfg), _stream(T))
     _check_launch("panel_packed", err)
     PANEL_APPLY_LAUNCHES += 1

@@ -142,16 +142,72 @@ def test_panel_route_through_ops_equals_flat(cuda):
 
 
 def test_panel_factor_keeps_panels_in_shared_memory(cuda, monkeypatch):
-    """The panel factorization's default tile_b fits its panels in shared
-    memory, and a tile_b whose panels do not fit raises."""
+    """The panel factorization's default tile_b fits its panels and their
+    control words in shared memory, and a tile_b whose panels do not fit
+    raises."""
     cfg = CONFIGS[0]
     P = chip_smoke.encoded_words(cfg, 5, 12, 6, False, np.random.default_rng(12),
                                  cuda)
     piv, tgt, col = ops.panel_steps(12, 6)
-    monkeypatch.setattr(qb, "MAX_SHARED_BYTES", 2 * 12 * 6 * 8)
-    chip_smoke.check_panel_sweep(P, cfg, 6, 6)         # default tile_b: 2
+    pairs = ops.panel_stages(12, 6)[1].shape[1]
+    monkeypatch.setattr(qb, "MAX_SHARED_BYTES", 2 * (12 * 6 + 2 * pairs) * 8)
+    monkeypatch.setattr(qb, "PANEL_TILE_B", 4)
+    chip_smoke.check_panel_sweep(P, cfg, 6, 6)         # default capped to 2
+    chip_smoke.check_panel_sweep(P, cfg, 6, 6, tile_b=2)
     with pytest.raises(ValueError, match="shared memory"):
         qb.panel_factor_packed_call(P.clone(), piv, tgt, col, cfg=cfg, tile_b=3)
+
+
+@pytest.mark.parametrize("hub,pw", [(False, 3), (True, 8)],
+                         ids=["ieee-pw3", "hub-pw8"])
+def test_panel_kernels_tree_node_shape(cuda, hub, pw):
+    """The panel route at the TSQR tree node's shape, (64, 32) with Q, on a
+    ragged batch of 3 in blocks of 2: B3a and B3b on the first, 64-row
+    panel against their plain versions (whose loops over 64-row steps take
+    most of the time), and the route's words against the flat kernel's."""
+    cfg = chip_smoke.GivensConfig(hub=hub, n=26)
+    rng = np.random.default_rng(40 + pw)
+    P = chip_smoke.encoded_words(cfg, 3, 64, 32, True, rng, cuda)
+    chip_smoke.check_panel_sweep(P, cfg, 32, pw, tile_b=2, plain_panels=1)
+
+
+def test_panel_apply_narrow_column_blocks(cuda, monkeypatch):
+    """B3b with fewer columns a block than a warp (its rows capped by the
+    shared-memory limit), ragged over a trailing region of 36, against its
+    plain version."""
+    cfg = CONFIGS[2]
+    P = chip_smoke.encoded_words(cfg, 3, 12, 6, True, np.random.default_rng(13),
+                                 cuda)
+    W = torch.cat([P, P[..., :24]], dim=-1).contiguous()       # e = 42
+    piv, tgt, col = ops.panel_steps(12, 6)
+    _, flip, sig = qb.panel_factor_packed_call(W[:, :, :6], piv, tgt, col,
+                                               cfg=cfg)
+    T = W[:, :, 6:]
+    want = qb.panel_apply_packed_reference(T, piv, tgt, flip, sig, cfg=cfg)
+    monkeypatch.setattr(qb, "MAX_SHARED_BYTES", 12 * 8 * 5)   # 5 columns
+    before = qb.PANEL_APPLY_LAUNCHES
+    qb.panel_apply_packed_call(T, piv, tgt, flip, sig, cfg=cfg)
+    torch.cuda.synchronize()
+    assert qb.PANEL_APPLY_LAUNCHES == before + 1
+    assert torch.equal(T, want)
+
+
+def test_wavefront_on_panel_stages_equals_panel_factor(cuda):
+    """B5a (`qr_packed_wavefront_call`) on a panel's stage tables
+    (`ops.panel_stages`) gives B3a's words."""
+    rng = np.random.default_rng(14)
+    for cfg in CONFIGS[::2]:
+        for mr, nc in ((64, 8), (20, 3), (6, 8)):
+            P = chip_smoke.encoded_words(cfg, 5, mr, nc, False, rng, cuda)
+            tabs, _ = ops.panel_stages(mr, nc)
+            before = (qb.QR_PACKED_WAVEFRONT_LAUNCHES, qb.PANEL_FACTOR_LAUNCHES)
+            wf = qb.qr_packed_wavefront_call(P, *tabs, cfg=cfg)
+            pf, _, _ = qb.panel_factor_packed_call(
+                P.clone(), *ops.panel_steps(mr, nc), cfg=cfg)
+            torch.cuda.synchronize()
+            assert (qb.QR_PACKED_WAVEFRONT_LAUNCHES,
+                    qb.PANEL_FACTOR_LAUNCHES) == (before[0] + 1, before[1] + 1)
+            assert torch.equal(wf, pf)
 
 
 # ---------------------------------------------------------------------------

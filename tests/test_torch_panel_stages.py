@@ -1,0 +1,146 @@
+"""The stages the port's packed panel kernels run the column-major panel
+steps in (`ops.panel_stages`, `qrd_blocked.levelize_steps`), against the
+JAX package on the CPU.
+
+* The stage tables of several panels: disjoint rows in every stage (the
+  wavefront tables' validator accepts them), every row meeting its steps
+  in step order, ``mr + min(mr - 1, nc) - 2`` stages, and the step indices
+  a permutation of the steps.
+* The plain versions of the panel kernels, fed the flattened stage order,
+  give the words and, mapped back through the step indices, the control
+  words of the JAX package's interpret-mode panel kernels in step order,
+  HUB and IEEE.
+* `qr_packed_wavefront_reference` on a panel's stage tables gives
+  `panel_factor_packed_reference`'s words.
+
+Inputs are made with numpy from a seed; every JAX call runs once, in a
+module-scoped fixture.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro.core.givens import GivensConfig as JConfig
+from repro.kernels import ops as jops
+from repro.kernels import qrd_blocked as jqb
+
+from repro_torch.core import qrd as tq
+from repro_torch.core.givens import GivensConfig, GivensUnit
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import qrd_blocked as tqb
+
+M, N, W = 12, 6, 12               # the panel, and its trailing region
+
+
+def _rows_in_order(piv, tgt, order):
+    """Each row's sequence of step indices when the steps run in ``order``."""
+    seq = {}
+    for s in order:
+        for r in (int(piv[s]), int(tgt[s])):
+            seq.setdefault(r, []).append(int(s))
+    return seq
+
+
+def _check_stages(tables, step, steps, m):
+    """The invariants of levelized stage tables of the (S,) ``steps``."""
+    piv, tgt, col = (np.asarray(t) for t in steps)
+    live = step >= 0
+    assert tables.shape[1:] == step.shape
+    assert np.array_equal(np.sort(step[live]), np.arange(len(piv)))
+    assert np.all(tables[:2][:, ~live] == m) and np.all(tables[2][~live] == 0)
+    for t, ref in zip(tables, (piv, tgt, col)):
+        assert np.array_equal(t[live], ref[step[live]])
+    tqb._stage_table(tqb._stage_key(*tables), m, int(col.max()) + 1, "cpu")
+    stage_order = step[live]                     # row-major: stage by stage
+    assert (_rows_in_order(piv, tgt, stage_order)
+            == _rows_in_order(piv, tgt, range(len(piv))))
+
+
+@pytest.mark.parametrize("mr,nc", [(12, 3), (12, 6), (9, 8), (6, 5), (5, 9),
+                                   (2, 1), (64, 8), (128, 8)])
+def test_panel_stages_are_disjoint_ordered_levels(mr, nc):
+    tables, step = tops.panel_stages(mr, nc)
+    assert tables.dtype == step.dtype == np.int32
+    assert not tables.flags.writeable and not step.flags.writeable
+    assert tops.panel_stages(mr, nc)[0] is tables          # memoized
+    assert tables.shape[1] == mr + min(mr - 1, nc) - 2
+    assert tables.shape[2] == min(mr - 1, nc, mr // 2)
+    _check_stages(tables, step, tops.panel_steps(mr, nc), mr)
+
+
+def test_levelize_steps_of_the_flat_schedule():
+    """Any step list levelizes; the flat column-major schedule at 32 x 32
+    gives 61 stages for 496 steps, the Sameh–Kuck depth."""
+    steps = tq.givens_schedule(32, 32)
+    cols = [tuple(s[i] for s in steps) for i in range(3)]
+    lv = tqb.levelize_steps(*cols, 32)
+    assert lv.shape[:2] == (4, 61) and len(steps) == 496
+    assert len(tq.sameh_kuck_schedule(32, 32)) == 61
+    _check_stages(lv[:3], lv[3], cols, 32)
+    none = tqb.levelize_steps((), (), (), 4)
+    assert none.shape == (4, 0, 0)
+
+
+def _configs(hub):
+    return JConfig(hub=hub), GivensConfig(hub=hub)
+
+
+def _words(hub):
+    """Packed words of two random [A | I] working matrices, 12 x 18 (the
+    port's encoding: both packages' kernels get the same words)."""
+    A = np.random.default_rng(7).standard_normal((2, M, N))
+    Wd = np.concatenate([A, np.broadcast_to(np.eye(M), (2, M, M))], axis=-1)
+    return GivensUnit(_configs(hub)[1]).encode(torch.tensor(Wd)).numpy()
+
+
+@pytest.fixture(scope="module")
+def jax_panel():
+    """JAX's panel factor on the first 6 columns and its apply on the other
+    12 (two chunks of 6), interpret mode, step order; HUB and IEEE."""
+    piv, tgt, col = jops.panel_steps(M, N)
+    out = {}
+    for hub in (False, True):
+        jc, _ = _configs(hub)
+        P = _words(hub)
+        f_out, flip, sig = jqb.panel_factor_packed_call(
+            P[:, :, :N], piv, tgt, col, cfg=jc, interpret=True)
+        T = P[:, :, N:].reshape(2, M, 2, N).transpose(0, 2, 1, 3)
+        T = jqb.panel_apply_packed_call(T, piv, tgt, flip, sig, cfg=jc,
+                                        interpret=True)
+        out[hub] = (np.asarray(f_out), np.asarray(flip), np.asarray(sig),
+                    np.asarray(T).transpose(0, 2, 1, 3).reshape(2, M, W))
+    return out
+
+
+@pytest.mark.parametrize("hub", [False, True], ids=["ieee", "hub"])
+def test_stage_order_plain_versions_bit_equal_to_jax(jax_panel, hub):
+    f_out, flip, sig, T_out = jax_panel[hub]
+    _, tc = _configs(hub)
+    P = torch.tensor(_words(hub))
+    tables, step = tops.panel_stages(M, N)
+    live = step >= 0
+    piv, tgt, col = (t[live] for t in tables)    # the flattened stage order
+    order = step[live]
+    got, sflip, ssig = tqb.panel_factor_packed_reference(P[:, :, :N], piv, tgt,
+                                                         col, cfg=tc)
+    np.testing.assert_array_equal(got.numpy(), f_out)
+    back = np.empty_like(order)
+    back[order] = np.arange(len(order))          # stage position of each step
+    np.testing.assert_array_equal(sflip[:, back].numpy(), flip)
+    np.testing.assert_array_equal(ssig[:, back].numpy(), sig)
+    T = tqb.panel_apply_packed_reference(P[:, :, N:], piv, tgt, sflip, ssig,
+                                         cfg=tc)
+    np.testing.assert_array_equal(T.numpy(), T_out)
+
+
+@pytest.mark.parametrize("mr,nc", [(12, 6), (9, 3), (5, 9)])
+def test_wavefront_reference_on_panel_stages_equals_panel_factor(mr, nc):
+    tc = GivensConfig(hub=True)
+    A = np.random.default_rng(mr + nc).standard_normal((2, mr, nc))
+    P = GivensUnit(tc).encode(torch.tensor(A))
+    tables, _ = tops.panel_stages(mr, nc)
+    want, _, _ = tqb.panel_factor_packed_reference(P, *tops.panel_steps(mr, nc),
+                                                   cfg=tc)
+    got = tqb.qr_packed_wavefront_reference(P, *tables, cfg=tc)
+    assert torch.equal(got, want)
+
