@@ -535,7 +535,8 @@ def flat_device_phase(device):
           f"device memory; Q and R bit-equal to the panel route; max "
           f"|QR-A|/|A| = {resid:.3e}, |QtQ-I| = {orth:.3e} (matrix {worst}; limit "
           f"{qr_tol(BIG_M):.0e}); kernel {ms:.3f} ms "
-          f"(median of 3), bound {bound_ms:.3f} ms ({bound_by})", flush=True)
+          f"(median of 3; {flat_shape(steps, BIG_BATCH, BIG_M, e, A.device)}), "
+          f"bound {bound_ms:.3f} ms ({bound_by})", flush=True)
     return dict(ms=ms, bound_ms=bound_ms, shape=[BIG_BATCH, BIG_M, e])
 
 
@@ -674,6 +675,17 @@ def plain_check(captured, cfg):
     return out
 
 
+def flat_shape(steps, B, m, e, device, kernel="qr_packed"):
+    """What the flat kernel B1 ('qr_packed') or B2 ('qr_blockfp') launches
+    by default for ``steps`` on B m x e tiles: a text of steps -> stages,
+    tile_b and threads a matrix."""
+    table = qb.flat_stage_table(steps, m, e)
+    threads = qb._flat_threads(kernel, table.shape[2], e, B, None, str(device))
+    return (f"{len(steps)} steps -> {table.shape[1]} stages of up to "
+            f"{table.shape[2]} pairs, tile_b {qb.TILE_B}, {threads} threads a "
+            f"matrix")
+
+
 def timing_phase(A, As, b, cfg):
     """Kernel and plain version at the main path's shapes, same words."""
     unit = GivensUnit(cfg)
@@ -690,7 +702,8 @@ def timing_phase(A, As, b, cfg):
     steps_s = givens_schedule(M, N_SOLVE + 1)
     check_kernel(Ps, cfg, steps_s)
     bound_ms, bound_by = bound(cfg, BATCH, M, N_COLS, M + N_COLS)
-    print(f"timing at {tuple(P.shape)} int64, {len(steps)} steps: kernel "
+    print(f"timing at {tuple(P.shape)} int64, "
+          f"{flat_shape(steps, BATCH, M, M + N_COLS, P.device)}: kernel "
           f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.3f} ms "
           f"({bound_by})", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
@@ -1129,12 +1142,87 @@ def blockfp_timing_phase(A):
     e = M + N_COLS
     bound_ms, bound_by = bfp_bound(True, 24, BATCH * active_elements(M, N_COLS, e),
                                    2 * BATCH * M * e * 4)
-    print(f"timing qr_blockfp at {tuple(X.shape)} int32, {len(steps)} steps: "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound {bound_ms:.3f} ms "
-          f"({bound_by})", flush=True)
+    print(f"timing qr_blockfp at {tuple(X.shape)} int32, "
+          f"{flat_shape(steps, BATCH, M, e, X.device, 'qr_blockfp')}: kernel "
+          f"{ms:.3f} ms, "
+          f"plain {plain_ms:.1f} ms, bound {bound_ms:.3f} ms ({bound_by})",
+          flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 max_abs_err=float((out - ref).abs().max().item()),
                 shape=list(X.shape))
+
+
+#: Block shapes the flat kernels B1 and B2 are also read at: (tile_b,
+#: threads a matrix) at the main path's shape, and threads a matrix at
+#: (BIG_BATCH, BIG_M, 2 BIG_M), one matrix an SM.
+FLAT_BLOCKS = tuple(itertools.product((1, 2, 4), (32, 64, 128, 256)))
+FLAT_BIG_THREADS = (256, 512, 1024)
+
+
+def flat_block_phase(A, cfg):
+    """B1 and B2 at the block shapes of `FLAT_BLOCKS` (two rounds, median
+    of 5 each) and, one matrix an SM, at `FLAT_BIG_THREADS` threads (five
+    interleaved rounds, median of 3 each), beside their wrappers' default.
+    The kernels run through `qb._qr_packed_launch`/`_qr_blockfp_launch` on
+    the cached stage table, so these windows hold no host work of the
+    wrapper; the wrapper's own window at the big shape is read in the same
+    rounds.  Every output must equal the wrapper's."""
+    unit = GivensUnit(cfg)
+    bfp_args = qb._blockfp_args(24, True)
+
+    def operands(A, m):
+        eye = torch.eye(m, dtype=torch.float64, device=A.device).expand(
+            A.shape[0], m, m)
+        W = torch.cat([A, eye], dim=-1)
+        X, _ = ops._blockfp_encode(W, 24)
+        steps = givens_schedule(m, m)
+        table = qb._flat_stage_table(steps, m, 2 * m, str(A.device))
+        return unit.encode(W).contiguous(), X.contiguous(), steps, table
+
+    def kernels(P, X, steps, table):
+        return {"B1": (lambda tb, th: qb._qr_packed_launch(P, table, cfg, tb, th),
+                       qb.qr_packed_call(P, cfg=cfg, steps=steps)),
+                "B2": (lambda tb, th: qb._qr_blockfp_launch(X, table, bfp_args,
+                                                            tb, th),
+                       qb.qr_blockfp_call(X, iters=24, hub=True, steps=steps))}
+
+    def read(name, launch, want, tile_b, threads, repeats):
+        ms, out = _event_ms(lambda: launch(tile_b, threads), repeats)
+        compare(f"{name} at tile_b {tile_b}, {threads} threads", out, want)
+        return ms
+
+    main = kernels(*operands(A, M))
+    for name, (launch, want) in main.items():
+        rounds = [[read(name, launch, want, tb, th, 5) for tb, th in FLAT_BLOCKS]
+                  for _ in range(2)]
+        cells = ", ".join(f"{tb}x{th} {a:.3f}/{b:.3f}"
+                          for (tb, th), a, b in zip(FLAT_BLOCKS, *rounds))
+        print(f"flat blocks {name} at {(BATCH, M, 2 * M)}, tile_b x threads "
+              f"ms (two rounds, median of 5): {cells}", flush=True)
+
+    P, X, steps, table = operands(torch.tensor(big_operand(), device=A.device),
+                                  BIG_M)
+    big = kernels(P, X, steps, table)
+    wrappers = {"B1": lambda: qb.qr_packed_call(P, cfg=cfg, steps=steps),
+                "B2": lambda: qb.qr_blockfp_call(X, iters=24, hub=True,
+                                                 steps=steps)}
+    readings = {(name, th): [] for name in big
+                for th in FLAT_BIG_THREADS + ("wrapper",)}
+    for _ in range(5):
+        for name, (launch, want) in big.items():
+            for th in FLAT_BIG_THREADS:
+                readings[name, th].append(read(name, launch, want, 1, th, 3))
+            ms, out = _event_ms(wrappers[name], 3)
+            compare(f"{name} wrapper at {tuple(P.shape)}", out, want)
+            readings[name, "wrapper"].append(ms)
+    for name, kernel in (("B1", "qr_packed"), ("B2", "qr_blockfp")):
+        default = qb._flat_threads(kernel, table.shape[2], 2 * BIG_M,
+                                   BIG_BATCH, None, str(A.device))
+        cells = "; ".join(f"{th}: " + ", ".join(f"{v:.3f}" for v in readings[name, th])
+                          for th in FLAT_BIG_THREADS + ("wrapper",))
+        print(f"flat blocks {name} at {tuple(P.shape)} (tile_b 1; the wrapper "
+              f"runs {default} threads), ms in five rounds (median of 3 "
+              f"each): {cells}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2407,6 +2495,7 @@ def run(device):
     blockfp_parity_phase(device)
     bfp_flat = blockfp_flat_path(device, A, As, b)
     bfp_timing = blockfp_timing_phase(A)
+    flat_block_phase(A, cfg)
     blockfp_big_phase(device)
     bfp_panel = panel_path(device, "blockfp")
     bfp_tsqr = tsqr_path(device, "blockfp")

@@ -28,7 +28,9 @@ LANE_ARGTYPES = [C_INT] * 10 + [ctypes.c_uint] * 2 + [C_INT, C_PTR]
 
 #: The launch functions of each source: their C argument types.
 SIGNATURES = {
-    "qr_packed_launch": [C_PTR] * 3 + [C_INT] * 7 + UNIT_ARGTYPES,
+    # (in, out, stage table, B, m, e, stages, pairs, tile_b, threads_x,
+    #  device_tile, ...)
+    "qr_packed_launch": [C_PTR] * 3 + [C_INT] * 8 + UNIT_ARGTYPES,
     # (P, sb, ld, B, mr, pw | w, stage table, stages, pairs, S, flip, sig, ...)
     "panel_factor_launch": ([C_PTR, C_LL, C_LL] + [C_INT] * 3 + [C_PTR]
                             + [C_INT] * 3 + [C_PTR] * 2 + [C_INT] * 2
@@ -37,7 +39,7 @@ SIGNATURES = {
                            + [C_INT] * 3 + [C_PTR] * 2 + [C_INT]
                            + UNIT_ARGTYPES),
     # block-FP launches end in (iters, hub, comp, stream)
-    "qr_blockfp_launch": [C_PTR] * 3 + [C_INT] * 9 + [C_PTR],
+    "qr_blockfp_launch": [C_PTR] * 3 + [C_INT] * 10 + [C_PTR],
     "panel_factor_blockfp_launch": ([C_PTR, C_LL, C_LL] + [C_INT] * 3
                                     + [C_PTR] * 3 + [C_INT] + [C_PTR] * 2
                                     + [C_INT] * 5 + [C_PTR]),

@@ -14,12 +14,14 @@
 //  * qr_blockfp: for each (k, j, col) step of a schedule read at run time
 //    (column-major, the RLS annihilation order, or any other), the fused
 //    step on rows k and j from column col, then the target lead forced to
-//    0.  Equal to qr_blockfp_reference.
-//  * panel_factor_blockfp: the same step loop on an mr x pw panel, writing
-//    each step's (flip, sigma) as int32 into the (B, S) outputs.  Equal to
-//    panel_factor_blockfp_reference: the JAX body rotates at uniform width
-//    and restores the lanes left of the lead; here those lanes are simply
-//    not touched.
+//    0, run in the stages of qrd_blocked.flat_stage_table (as qr_packed.cu
+//    does; the words are the step order's).  Equal to
+//    qr_blockfp_reference.
+//  * panel_factor_blockfp: the fused steps, in step order, on an mr x pw
+//    panel, writing each step's (flip, sigma) as int32 into the (B, S)
+//    outputs.  Equal to panel_factor_blockfp_reference: the JAX body
+//    rotates at uniform width and restores the lanes left of the lead;
+//    here those lanes are simply not touched.
 //  * panel_apply_blockfp: every (piv, tgt, flip, sigma) step replayed on
 //    the trailing mr x w region.  Equal to panel_apply_blockfp_reference.
 // Panel by panel the last two run the flat kernel's column-major steps in
@@ -28,18 +30,26 @@
 // Bound on this card: integer operations.  A rotated element costs about
 // 11 int32 operations per micro-rotation (HUB) and 12 for the gain
 // compensation, some 280 at iters = 24, against one 4-byte read and one
-// write of each significand for the whole factorization.
+// write of each significand for the whole factorization (3.02 ms of
+// operations against 0.04 ms of bytes at (8192, 32, 64)); nothing maps
+// onto tensor cores or TMA.
 //
-// Design (simple first; speed is later work):
+// Design:
 //  * qr_blockfp: one block holds `tile_b` matrices (blockDim.y), each m x e
-//    tile in dynamic shared memory for the whole factorization.  On the
-//    routes resolve_route allows, the largest tile is 128 x 256 int32
-//    (128 KiB), under a block's 227 KB, so there is no device-memory mode;
-//    the wrapper caps tile_b to shared memory and refuses a larger one.
-//  * The step loop is bfp::factor_tile (blockfp_unit.cuh): threads of a row
-//    (blockDim.x) stride over the elements col..e-1; each thread runs the
-//    lead's vectoring itself, then replays the control word on its own
-//    elements in place; two barriers a step.
+//    tile and its stage's control words in dynamic shared memory for the
+//    whole factorization.  On the routes resolve_route allows, the largest
+//    tile is 128 x 256 int32 (128 KiB), under a block's 227 KB, so there
+//    is no device-memory mode; the wrapper caps tile_b to shared memory
+//    and refuses a larger one.  The stage loop is qr_packed.cu's
+//    (wf::run_item_stages on wf::BlockfpStage, B5b's pair step): one
+//    thread per pair vectors the lead once, then the matrix's threads
+//    replay the control word over the stage's live (pair, column) items;
+//    two barriers a stage.
+//  * panel_factor_blockfp runs the step loop bfp::factor_tile
+//    (blockfp_unit.cuh): threads of a row (blockDim.x) stride over the
+//    elements col..e-1; each thread runs the lead's vectoring itself, then
+//    replays the control word on its own elements in place; two barriers a
+//    step.
 //  * panel_factor_blockfp and panel_apply_blockfp work in place on
 //    row-strided views of the (B, m, e) working buffer (batch stride sb,
 //    row stride ld, unit column stride), as panel_packed.cu does.  The
@@ -48,22 +58,25 @@
 #include <cuda_runtime.h>
 
 #include "blockfp_unit.cuh"
+#include "stage_bodies.cuh"
+#include "stage_loop.cuh"
 
 using bfp::i32;
 using bfp::Params;
 
 __global__ void qr_blockfp_kernel(const i32* __restrict__ in, i32* out,
-                                  const int* __restrict__ steps, int B, int m,
-                                  int e, int S, Params u) {
-  extern __shared__ i32 tiles[];
+                                  wf::Tables t, int B, int m, int e,
+                                  Params u) {
+  extern __shared__ i32 flat_smem32[];
   const long long me = (long long)m * e;
   const long long b = (long long)blockIdx.x * blockDim.y + threadIdx.y;
   const bool live = b < B;  // the ragged edge of the last block
-  i32* T = tiles + threadIdx.y * me;
+  i32* T = flat_smem32 + threadIdx.y * me;
+  i32* ctrl = flat_smem32 + (long long)blockDim.y * me +
+              (long long)threadIdx.y * t.P * 2;
   if (live) bfp::copy_tile(T, e, in + b * me, e, m, e);
   __syncthreads();
-  bfp::factor_tile(T, e, e, steps, steps + 1, steps + 2, 3, S, live, u,
-                   nullptr, nullptr);
+  wf::run_item_stages(t, m, e, live, wf::BlockfpStage{T, e, &u, ctrl});
   if (live) bfp::copy_tile(out + b * me, e, T, e, m, e);
 }
 
@@ -110,19 +123,20 @@ extern "C" {
 
 // Each launches on `stream` and returns the CUDA error of the launch (0 on
 // success).
-int qr_blockfp_launch(const void* in, void* out, const void* steps, int B,
-                      int m, int e, int S, int tile_b, int threads_x,
+int qr_blockfp_launch(const void* in, void* out, const void* tables, int B,
+                      int m, int e, int S, int P, int tile_b, int threads_x,
                       int iters, int hub, int comp, void* stream) {
   const Params u = {iters, hub, comp};
+  const wf::Tables t = {(const int*)tables, (long long)S * P, P, S, P};
   const dim3 block(threads_x, tile_b);
   const dim3 grid((B + tile_b - 1) / tile_b);
-  const size_t smem = (size_t)tile_b * m * e * sizeof(i32);
+  const size_t smem = (size_t)tile_b * ((size_t)m * e + 2 * P) * sizeof(i32);
   cudaError_t err = cudaFuncSetAttribute(
       qr_blockfp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   qr_blockfp_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      (const i32*)in, (i32*)out, (const int*)steps, B, m, e, S, u);
+      (const i32*)in, (i32*)out, t, B, m, e, u);
   return (int)cudaGetLastError();
 }
 

@@ -29,10 +29,9 @@
 // Design (simple first; speed is later work):
 //  * Both kernels are one stage loop, wf::run_stages (stage_loop.cuh): a
 //    step-serial schedule is a schedule of stages of one pair.  One thread
-//    per pair vectors the lead once into shared memory (B1's
-//    gru::factor_tile repeats the vectoring in every thread of the row),
-//    then the block's threads spread over (pair, column) and replay it;
-//    two barriers a stage.
+//    per pair vectors the lead once into shared memory, then the block's
+//    threads spread over (pair, column) and replay it; two barriers a
+//    stage.
 //  * One block holds `tile_b` matrices (blockDim.y).  The (m, e) tile of
 //    (hi, lo) words, 8 bytes a word as in B1, lives in dynamic shared
 //    memory and is loaded and stored as int2; when the block's tiles do

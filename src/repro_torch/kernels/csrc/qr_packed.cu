@@ -9,80 +9,95 @@
 // compensation, output converter), then the target lead forced to 0.
 // The output words equal the plain version's (qr_packed_reference).
 //
-// Bound on this card: integer operations.  The steps are a chain of
-// dependent 64-bit integer recurrences over a tile that is read once and
-// written once, so memory traffic (2 passes over B*m*e*8 bytes) is tiny
-// next to the ALU work (several hundred int64 operations per element per
-// rotation).  At the main-path shape, (8192, 32, 64) words with HUB N = 26,
-// chip_smoke.py counts 2.49e11 32-bit operations: 7.45 ms at an H100 SXM's
-// integer issue rate (4 warp instructions per clock per SM, 33.4e12/s),
-// against 0.08 ms for the two passes at 3.35 TB/s.
+// It runs the steps in stages: the wrapper levelizes them
+// (qrd_blocked.flat_stage_table), each step one level past the last steps
+// on its two rows, so a stage's pairs touch disjoint rows and every row
+// meets its steps in their order, and the words are the step order's bit
+// for bit.  Any schedule works: column-major (496 steps -> 61 stages at
+// 32 x 32 with Q), the solve augmentation (391 -> 47), a flattened
+// Sameh-Kuck order (as many stages as its own).
 //
-// Design (simple first; speed is later work):
-//  * One block factorizes `tile_b` matrices (blockDim.y).  The m x e tile of
-//    each lives in dynamic shared memory for the whole factorization, so
-//    device memory is touched twice.  A tile larger than a block's shared
-//    memory (tile_b * m * e * 8 > 232448 bytes, e.g. 128 x 128 with Q) is
-//    factorized in place in device memory instead: `in` is copied to `out`
-//    once and the same step loop runs on `out` (kShared = false), through
-//    the L1 and L2 caches.
-//  * The schedule travels as an (S, 3) int32 table and is walked in a
-//    runtime loop, so one binary serves any schedule.
-//  * The step loop is gru::factor_tile (qr_tile.cuh), shared with the panel
-//    factorization: threads of a row (blockDim.x) stride over the elements
-//    col..e-1; each thread runs the lead's vectoring itself, then rotates
-//    its own elements in place; two barriers a step.
+// Bound on this card: integer operations.  The tile is read once and
+// written once (0.08 ms of bytes at (8192, 32, 64) at 3.35 TB/s) against
+// some 1136 32-bit operations per rotated element pair (7.45 ms at the SM
+// issue rate; chip_smoke.py counts them).  Nothing maps onto tensor cores
+// (bit-exact integer recurrences, no product) or TMA (one read, one
+// write), so the design cuts issue slots and the sequential depth:
+//  * One thread per pair vectors the lead once and keeps the control word
+//    (flip, sigma) in shared memory: 61 warp-vectorings a 32 x 32 matrix
+//    with Q, where every thread of a row repeating it would issue 992.
+//  * The replay spreads over the stage's live (pair, column) items only
+//    (wf::run_item_stages, stage_bodies.cuh), so no lane idles on a column
+//    left of a lead; the pair steps are B5a's (wf::PackedStage).
+//  * One block holds `tile_b` matrices (blockDim.y), each with blockDim.x
+//    threads; two barriers a stage.  The wrapper widens blockDim.x for a
+//    batch too small to fill the card (qrd_blocked._flat_threads).
+//  * The m x e tile lives in dynamic shared memory, or, when the block's
+//    tiles and control words exceed 232448 bytes (128 x 128 with Q), in
+//    place in device memory (`in` copied to `out` once, kShared = false),
+//    through the L1 and L2 caches; the control words stay in shared memory.
 #include <cuda_runtime.h>
 
 #include "qr_tile.cuh"
+#include "stage_bodies.cuh"
+#include "stage_loop.cuh"
 
 using gru::i64;
 using gru::UnitParams;
 
 template <bool kShared>
 __global__ void qr_packed_kernel(const i64* __restrict__ in, i64* out,
-                                 const int* __restrict__ steps, int B, int m,
-                                 int e, int S, UnitParams u) {
-  extern __shared__ i64 tiles[];
+                                 wf::Tables t, int B, int m, int e,
+                                 UnitParams u) {
+  extern __shared__ i64 flat_smem64[];
   const long long me = (long long)m * e;
   const long long b = (long long)blockIdx.x * blockDim.y + threadIdx.y;
   const bool live = b < B;  // the ragged edge of the last block
-  i64* T = kShared ? tiles + threadIdx.y * me : out + (live ? b : 0) * me;
-
+  i64* ctrl = flat_smem64 + (kShared ? (long long)blockDim.y * me : 0) +
+              (long long)threadIdx.y * t.P * 2;
+  i64* T = kShared ? flat_smem64 + threadIdx.y * me
+                   : out + (live ? b : 0) * me;
   if (live) gru::copy_tile(T, e, in + b * me, e, m, e);
   __syncthreads();
-  gru::factor_tile(T, e, e, steps, steps + 1, steps + 2, 3, S, live, u,
-                   nullptr, nullptr);
+  wf::run_item_stages(t, m, e, live, wf::PackedStage{T, e, &u, ctrl});
   if (kShared && live) gru::copy_tile(out + b * me, e, T, e, m, e);
 }
 
 extern "C" {
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success).  With
-// device_tile the working tile lives in `out` (device memory), not in
-// shared memory.
-int qr_packed_launch(const void* in, void* out, const void* steps, int B, int m,
-                     int e, int S, int tile_b, int threads_x, int device_tile,
-                     int man_bits, int exp_bits, long long bias,
-                     long long max_exp_raw, int N, int iters, int hub, int rne,
-                     int unbiased, int detect_identity, long long comp, int p,
-                     void* stream) {
+// Launches on `stream`; returns the CUDA error of the launch (0 on
+// success).  `tables` is the (4, S, P) int32 stage table of
+// qrd_blocked.flat_stage_table.  With device_tile the working tiles live
+// in `out` (device memory), not in shared memory; the control words stay
+// in shared memory.
+int qr_packed_launch(const void* in, void* out, const void* tables, int B,
+                     int m, int e, int S, int P, int tile_b, int threads_x,
+                     int device_tile, int man_bits, int exp_bits,
+                     long long bias, long long max_exp_raw, int N, int iters,
+                     int hub, int rne, int unbiased, int detect_identity,
+                     long long comp, int p, void* stream) {
   const UnitParams u = {man_bits, exp_bits, bias, max_exp_raw, N, iters, hub,
                         rne, unbiased, detect_identity, comp, p};
+  const wf::Tables t = {(const int*)tables, (long long)S * P, P, S, P};
   const dim3 block(threads_x, tile_b);
   const dim3 grid((B + tile_b - 1) / tile_b);
+  const size_t ctrl = (size_t)tile_b * P * 2 * sizeof(i64);
   if (device_tile) {
-    qr_packed_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
-        (const i64*)in, (i64*)out, (const int*)steps, B, m, e, S, u);
+    cudaError_t err = cudaFuncSetAttribute(
+        qr_packed_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)ctrl);
+    if (err != cudaSuccess) return (int)err;
+    qr_packed_kernel<false><<<grid, block, ctrl, (cudaStream_t)stream>>>(
+        (const i64*)in, (i64*)out, t, B, m, e, u);
     return (int)cudaGetLastError();
   }
-  const size_t smem = (size_t)tile_b * m * e * sizeof(i64);
+  const size_t smem = (size_t)tile_b * m * e * sizeof(i64) + ctrl;
   cudaError_t err = cudaFuncSetAttribute(
       qr_packed_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   qr_packed_kernel<true><<<grid, block, smem, (cudaStream_t)stream>>>(
-      (const i64*)in, (i64*)out, (const int*)steps, B, m, e, S, u);
+      (const i64*)in, (i64*)out, t, B, m, e, u);
   return (int)cudaGetLastError();
 }
 

@@ -18,13 +18,15 @@
 // stage touch disjoint rows, and each pair's words are those of its step.
 //
 // Bound on this card: integer operations, as for qr_packed.cu and
-// blockfp.cu: the same elements are rotated as on the step-serial kernels
-// at the same shape, so the bound is theirs.  What the wavefront changes is
-// the sequential depth: 61 stages at 32 x 32 against 496 steps.
+// blockfp.cu: the same elements are rotated as on the flat kernels at the
+// same shape, so the bound is theirs.  Its sequential depth is theirs too:
+// 61 stages at 32 x 32, which the flat kernels reach by levelizing the
+// 496 column-major steps.
 //
 // Design (simple first; speed is later work):
 //  * One block holds `tile_b` matrices (blockDim.y); the stage loop is
-//    wf::run_stages (stage_loop.cuh): one thread per pair computes the
+//    wf::run_stages (stage_loop.cuh) on the pair steps of stage_bodies.cuh,
+//    shared with the flat kernels: one thread per pair computes the
 //    pair's control word into shared memory, then the block's threads
 //    spread over (pair, column) and replay it; two barriers a stage.
 //  * Packed: the m x e int64 tile lives in dynamic shared memory, or, when
@@ -33,56 +35,13 @@
 //    qr_packed.cu.  Block-FP: the int32 tile always fits (at most 128 KiB).
 #include <cuda_runtime.h>
 
-#include "blockfp_unit.cuh"
-#include "givens_unit.cuh"
 #include "qr_tile.cuh"
+#include "stage_bodies.cuh"
 #include "stage_loop.cuh"
 
 using gru::i64;
 using gru::UnitParams;
 using bfp::i32;
-
-// B5a's pair step: GivensUnit.vector on the lead pair, GivensUnit.rotate
-// of its control word on each element.  ctrl holds (flip, sig) per pair.
-struct PackedStage {
-  i64* T;
-  int ld;
-  const UnitParams* u;
-  i64* ctrl;
-  __device__ __forceinline__ void lead(int, int p, int k, int j,
-                                       int c) const {
-    i64 x, y, m_exp;
-    gru::to_fixed(T[k * ld + c], T[j * ld + c], *u, x, y, m_exp);
-    gru::vectoring(x, y, *u, ctrl[2 * p], ctrl[2 * p + 1]);
-  }
-  __device__ __forceinline__ void element(int p, int k, int j, int c,
-                                          int idx) const {
-    i64& x = T[k * ld + idx];
-    i64& y = T[j * ld + idx];
-    gru::rotate_pair(x, y, *u, ctrl[2 * p], ctrl[2 * p + 1]);
-    if (idx == c) y = 0;  // structural zero (systolic array)
-  }
-};
-
-// B5b's pair step: fused_rotate_pairs on one pair.
-struct BlockfpStage {
-  i32* T;
-  int ld;
-  const bfp::Params* u;
-  i32* ctrl;
-  __device__ __forceinline__ void lead(int, int p, int k, int j,
-                                       int c) const {
-    bfp::vector_lead(T[k * ld + c], T[j * ld + c], *u, ctrl[2 * p],
-                     ctrl[2 * p + 1]);
-  }
-  __device__ __forceinline__ void element(int p, int k, int j, int c,
-                                          int idx) const {
-    i32 x = T[k * ld + idx], y = T[j * ld + idx];
-    bfp::replay(x, y, *u, ctrl[2 * p], ctrl[2 * p + 1]);
-    T[k * ld + idx] = x;
-    T[j * ld + idx] = idx == c ? 0 : y;  // structural zero
-  }
-};
 
 template <bool kShared>
 __global__ void qr_packed_wavefront_kernel(const i64* __restrict__ in, i64* out,
@@ -98,7 +57,7 @@ __global__ void qr_packed_wavefront_kernel(const i64* __restrict__ in, i64* out,
   i64* T = kShared ? tiles + threadIdx.y * me : out + (live ? b : 0) * me;
   if (live) gru::copy_tile(T, e, in + b * me, e, m, e);
   __syncthreads();
-  wf::run_stages(t, m, e, live, PackedStage{T, e, &u, ctrl});
+  wf::run_stages(t, m, e, live, wf::PackedStage{T, e, &u, ctrl});
   if (kShared && live) gru::copy_tile(out + b * me, e, T, e, m, e);
 }
 
@@ -114,7 +73,7 @@ __global__ void qr_blockfp_wavefront_kernel(const i32* __restrict__ in,
               (long long)threadIdx.y * t.P * 2;
   if (live) bfp::copy_tile(T, e, in + b * me, e, m, e);
   __syncthreads();
-  wf::run_stages(t, m, e, live, BlockfpStage{T, e, &u, ctrl});
+  wf::run_stages(t, m, e, live, wf::BlockfpStage{T, e, &u, ctrl});
   if (live) bfp::copy_tile(out + b * me, e, T, e, m, e);
 }
 

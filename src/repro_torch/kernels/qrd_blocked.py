@@ -3,10 +3,10 @@ wrappers, launch counters and plain PyTorch versions.
 
 * `qr_packed_call` (``csrc/qr_packed.cu``) replaces
   `repro.kernels.qrd_blocked.qr_packed_call`: every schedule step of the
-  flat route on one resident m x e tile, bit-identical to
-  `qr_packed_reference`, the loop of `GivensUnit.rotate_rows` over the
-  steps.  A tile beyond a block's shared memory is factorized in place in
-  device memory.
+  flat route on one resident m x e tile, run in stages of disjoint row
+  pairs (`flat_stage_table`), bit-identical to `qr_packed_reference`, the
+  loop of `GivensUnit.rotate_rows` over the steps.  A tile beyond a
+  block's shared memory is factorized in place in device memory.
 * `panel_factor_packed_call` and `panel_apply_packed_call`
   (``csrc/panel_packed.cu``) replace their namesakes of the JAX package:
   the panel route's factorization of an mr x pw panel, exporting each
@@ -18,7 +18,8 @@ wrappers, launch counters and plain PyTorch versions.
 * `qr_blockfp_call`, `panel_factor_blockfp_call` and
   `panel_apply_blockfp_call` (``csrc/blockfp.cu``) replace their namesakes
   of the JAX package on the int32 block-FP datapath: the same three jobs on
-  int32 significands with one shared exponent per (matrix, column),
+  int32 significands with one shared exponent per (matrix, column) (the
+  flat one in the stages of `flat_stage_table`),
   bit-identical to `qr_blockfp_reference`,
   `panel_factor_blockfp_reference` and `panel_apply_blockfp_reference`,
   loops of `repro_torch.kernels.cordic_givens.fused_rotate_block`,
@@ -88,11 +89,26 @@ __all__ = ["qr_packed_call", "qr_packed_reference", "QR_PACKED_LAUNCHES",
            "qr_packed_lanes_wavefront_call",
            "qr_packed_lanes_wavefront_reference",
            "QR_PACKED_LANES_WAVEFRONT_LAUNCHES", "TABLE_LAYOUTS",
-           "TILE_B", "PANEL_TILE_B", "MAX_SHARED_BYTES", "kernel_params",
-           "levelize_steps"]
+           "TILE_B", "FLAT_THREADS", "FLAT_MAX_THREADS", "PANEL_TILE_B",
+           "MAX_SHARED_BYTES", "kernel_params", "levelize_steps",
+           "flat_stage_table"]
 
-#: Matrices per CUDA block when the caller gives no ``tile_b``.
+#: Matrices per CUDA block when the caller gives no ``tile_b``.  For the
+#: flat kernels B1 and B2 at (8192, 32, 64) on an H100, tile_b 2 and 4 at
+#: 32 threads a matrix read up to 2.3% (B1) and 0.6% (B2) faster than 1;
+#: 1 stays, because more than one matrix a block leaves SMs idle for a
+#: batch of fewer matrices than tile_b x the SMs (132 at 128 x 128).
 TILE_B = 1
+
+#: Threads per matrix of the flat kernels' stage loop at a batch that
+#: fills the card, by kernel: of 32 to 256 at tile_b 1, the fastest at the
+#: flat route's (8192, 32, 64) on an H100 (`_flat_threads`).
+FLAT_THREADS = {"qr_packed": 128, "qr_blockfp": 32}
+
+#: The most threads per matrix `_flat_threads` widens a small batch's
+#: blocks to: of 256, 512 and 1024, the fastest for B1 and B2 at
+#: (132, 128, 256), one matrix an SM, on an H100.
+FLAT_MAX_THREADS = 512
 
 #: Panels per CUDA block of the packed panel factorization when the caller
 #: gives no ``tile_b`` (of 1, 2 and 4, the fastest at the TSQR leaves' and
@@ -220,9 +236,10 @@ def _lane_args(cfg: GivensConfig):
 
 
 def _threads_x(e: int) -> int:
-    """Threads of a row of the step loops `gru::factor_tile` (the flat
-    kernel) and `bfp::factor_tile`: one per element up to a warp, then
-    whole warps, at most 256."""
+    """Threads of a row of the complex flat kernel (its steps run as stages
+    of one pair) and of `bfp::factor_tile` (the block-FP panel
+    factorization): one per element up to a warp, then whole warps, at
+    most 256."""
     return e if e <= 32 else min(-(-e // 32) * 32, 256)
 
 
@@ -252,14 +269,71 @@ def _shared_tile_b(tile_b, fn: str, threads_x: int, tile_bytes: int,
     return tile_b
 
 
-@lru_cache(maxsize=SCHEDULE_CACHE_SIZE)
-def _step_table(steps, m: int, e: int, device: str):
+def _check_steps(steps, m: int, e: int):
+    """Every ``(k, j, col)`` step names two rows of an m x e working tile
+    and a column of it; anything else raises ValueError."""
     for (k, j, col) in steps:
         if not (0 <= k < m and 0 <= j < m and k != j and 0 <= col < e):
             raise ValueError(f"schedule step {(k, j, col)} is out of range "
                              f"for a {m} x {e} working tile")
+
+
+@lru_cache(maxsize=SCHEDULE_CACHE_SIZE)
+def _step_table(steps, m: int, e: int, device: str):
+    _check_steps(steps, m, e)
     return torch.tensor(steps, dtype=torch.int32,
                         device=device).reshape(len(steps), 3)
+
+
+def flat_stage_table(steps, m: int, e: int) -> np.ndarray:
+    """The (4, S', P) int32 stage table the flat kernels (B1, B2) run a
+    step-serial schedule from: `levelize_steps` of ``steps`` on m rows,
+    with row 3, the step indices, replaced by each pair's inclusive end
+    among the stage's live (pair, column) items.  Pair p of a stage owns
+    the items ``end[p] - (e - col[p]) .. end[p] - 1``, the columns
+    ``col[p] .. e - 1`` of its two rows; a padded pair (row m) owns none.
+    Out-of-range steps raise ValueError."""
+    steps = tuple(tuple(int(v) for v in s) for s in steps)
+    _check_steps(steps, m, e)
+    piv, tgt, col = (tuple(s[i] for s in steps) for i in range(3))
+    tab = levelize_steps(piv, tgt, col, m).copy()
+    tab[3] = np.cumsum(np.where(tab[0] < m, e - tab[2], 0), axis=1)
+    tab.setflags(write=False)
+    return tab
+
+
+@lru_cache(maxsize=SCHEDULE_CACHE_SIZE)
+def _flat_stage_table(steps, m: int, e: int, device: str):
+    """`flat_stage_table` as a cached int32 tensor on ``device``, keyed on
+    the steps as the caller gives them (a tuple of triples): a call on a
+    memoized schedule hashes it, and converts none of its steps."""
+    return torch.tensor(flat_stage_table(steps, m, e), device=device)
+
+
+@lru_cache(maxsize=None)
+def _card_threads(device: str) -> int:
+    """Threads the card holds at once: SMs x threads an SM."""
+    props = torch.cuda.get_device_properties(device)
+    return props.multi_processor_count * props.max_threads_per_multi_processor
+
+
+def _flat_threads(kernel: str, pairs: int, e: int, B: int, tile_b,
+                  device: str) -> int:
+    """Threads per matrix of the flat kernel ``kernel`` ('qr_packed' or
+    'qr_blockfp'): its `FLAT_THREADS`, doubled while the grid's threads
+    still fit the card at once (`_card_threads`) — a batch too small to
+    fill the card spreads each matrix over more threads rather than leave
+    SMs idle — up to `FLAT_MAX_THREADS`, and at most one per (pair, column)
+    of the widest stage, in whole warps, and 1024 per block (a ``tile_b``
+    beyond 32 then fails `_block_shape`)."""
+    tile_b = TILE_B if tile_b is None else max(int(tile_b), 1)
+    cap = min(max(-(-pairs * e // 32) * 32, 32), max(1024 // tile_b, 32))
+    threads = min(FLAT_THREADS[kernel], cap)
+    cap = min(cap, FLAT_MAX_THREADS)
+    room = _card_threads(device) if B else 0
+    while 2 * threads <= cap and -(-B // tile_b) * tile_b * 2 * threads <= room:
+        threads *= 2
+    return threads
 
 
 def _host_table(t) -> tuple:
@@ -367,27 +441,43 @@ def qr_packed_call(P, *, cfg: GivensConfig, steps, tile_b: int | None = None):
     Returns
     -------
     (B, m, e) int64 — the triangularized packed words.  When the block's
-    tiles exceed `MAX_SHARED_BYTES` the kernel works on them in place in
-    the output's device memory instead of shared memory; the words are the
-    same.
+    tiles and control words exceed `MAX_SHARED_BYTES` the kernel works on
+    the tiles in place in the output's device memory instead of shared
+    memory; the words are the same.
+
+    The kernel runs the steps in the levels of `flat_stage_table` (derived
+    on the host and cached): one thread per pair vectors its lead once,
+    then the matrix's threads (`_flat_threads`) replay the control words
+    over the stage's live (pair, column) items; the words equal the step
+    order's.  Out-of-range steps raise ValueError.
     """
-    global QR_PACKED_LAUNCHES
-    steps = tuple(tuple(int(v) for v in s) for s in steps)
+    steps = tuple(map(tuple, steps))
     if _check_operand("qr_packed_call", P):
         return qr_packed_reference(P, cfg=cfg, steps=steps)
     if not P.is_contiguous():
         raise ValueError("qr_packed_call: expected a contiguous tensor")
     B, m, e = P.shape
-    threads_x = _threads_x(e)
+    table = _flat_stage_table(steps, m, e, str(P.device))
+    threads_x = _flat_threads("qr_packed", table.shape[2], e, B, tile_b,
+                              str(P.device))
+    return _qr_packed_launch(P, table, cfg, tile_b, threads_x)
+
+
+def _qr_packed_launch(P, table, cfg: GivensConfig, tile_b, threads_x: int):
+    """B1 on a CUDA tensor: the stages of ``table`` (`_flat_stage_table`)
+    with ``threads_x`` threads a matrix and ``tile_b`` matrices a block."""
+    global QR_PACKED_LAUNCHES
+    B, m, e = P.shape
+    stages, pairs = table.shape[1:]
     tile_b = _block_shape("qr_packed_call", tile_b, threads_x)
-    device_tile = tile_b * m * e * 8 > MAX_SHARED_BYTES
+    device_tile = tile_b * (m * e + 2 * pairs) * 8 > MAX_SHARED_BYTES
     out = torch.empty_like(P)
     if B == 0:
         return out
-    table = _step_table(steps, m, e, str(P.device))
     err = _lib("qr_packed").qr_packed_launch(
-        P.data_ptr(), out.data_ptr(), table.data_ptr(), B, m, e, len(steps),
-        tile_b, threads_x, int(device_tile), *_unit_args(cfg), _stream(P))
+        P.data_ptr(), out.data_ptr(), table.data_ptr(), B, m, e, stages,
+        pairs, tile_b, threads_x, int(device_tile),
+        *_unit_args(cfg), _stream(P))
     _check_launch("qr_packed", err)
     QR_PACKED_LAUNCHES += 1
     return out
@@ -617,26 +707,36 @@ def qr_blockfp_call(X, *, iters: int, hub: bool, steps,
 
     Returns
     -------
-    (B, m, e) int32 — the triangularized significands (same scales).
+    (B, m, e) int32 — the triangularized significands (same scales).  The
+    kernel runs the steps in stages, as `qr_packed_call` does.
     """
-    global QR_BLOCKFP_LAUNCHES
-    steps = tuple(tuple(int(v) for v in s) for s in steps)
+    steps = tuple(map(tuple, steps))
     args = _blockfp_args(iters, hub)
     if _check_operand("qr_blockfp_call", X, dtype=torch.int32):
         return qr_blockfp_reference(X, iters=iters, hub=hub, steps=steps)
     if not X.is_contiguous():
         raise ValueError("qr_blockfp_call: expected a contiguous tensor")
     B, m, e = X.shape
-    threads_x = _threads_x(e)
-    tile_b = _shared_tile_b(tile_b, "qr_blockfp_call", threads_x, m * e * 4,
-                            TILE_B)
+    table = _flat_stage_table(steps, m, e, str(X.device))
+    threads_x = _flat_threads("qr_blockfp", table.shape[2], e, B, tile_b,
+                              str(X.device))
+    return _qr_blockfp_launch(X, table, args, tile_b, threads_x)
+
+
+def _qr_blockfp_launch(X, table, args, tile_b, threads_x: int):
+    """B2 on a CUDA tensor, as `_qr_packed_launch`; ``args`` are
+    `_blockfp_args`."""
+    global QR_BLOCKFP_LAUNCHES
+    B, m, e = X.shape
+    stages, pairs = table.shape[1:]
+    tile_b = _shared_tile_b(tile_b, "qr_blockfp_call", threads_x,
+                            (m * e + 2 * pairs) * 4, TILE_B)
     out = torch.empty_like(X)
     if B == 0:
         return out
-    table = _step_table(steps, m, e, str(X.device))
     err = _lib("blockfp").qr_blockfp_launch(
-        X.data_ptr(), out.data_ptr(), table.data_ptr(), B, m, e, len(steps),
-        tile_b, threads_x, *args, _stream(X))
+        X.data_ptr(), out.data_ptr(), table.data_ptr(), B, m, e, stages,
+        pairs, tile_b, threads_x, *args, _stream(X))
     _check_launch("blockfp", err)
     QR_BLOCKFP_LAUNCHES += 1
     return out

@@ -255,10 +255,12 @@ def test_blockfp_panel_kernels_bit_equal_to_plain_versions(cuda, hub, iters):
 
 def test_blockfp_kernels_keep_tiles_in_shared_memory(cuda, monkeypatch):
     """B2 and B4a cap their default tile_b to shared memory and raise on an
-    explicit tile_b whose tiles do not fit."""
+    explicit tile_b whose tiles (B2: and their stage's control words) do
+    not fit."""
     rng = np.random.default_rng(12)
     X = chip_smoke.bfp_words(5, 12, 18, rng, cuda)
-    monkeypatch.setattr(qb, "MAX_SHARED_BYTES", 2 * 12 * 18 * 4)
+    pairs = qb.flat_stage_table(givens_schedule(12, 6), 12, 18).shape[2]
+    monkeypatch.setattr(qb, "MAX_SHARED_BYTES", 2 * (12 * 18 + 2 * pairs) * 4)
     chip_smoke.check_bfp_flat(X, True, 24, givens_schedule(12, 6), tile_b=2)
     with pytest.raises(ValueError, match="shared memory"):
         qb.qr_blockfp_call(X, iters=24, hub=True,
@@ -303,6 +305,103 @@ def test_blockfp_engine_and_rls_on_gpu_equal_cpu(cuda):
         st.flush()
     assert torch.equal(states[0].R.cpu(), states[1].R)
     assert torch.equal(states[0].z.cpu(), states[1].z)
+
+
+# ---------------------------------------------------------------------------
+# the flat kernels' stages (B1 and B2 on any step order)
+# ---------------------------------------------------------------------------
+#: name -> (rows m, columns e, steps): the RLS block order, the solve
+#: augmentation [A | b] of a 12 x 6 problem, and a flattened Sameh–Kuck
+#: order with Q.
+FLAT_ORDERS = {"rls": (12, 9, ops.rls_block_steps(8, 4)),
+               "solve": (12, 7, givens_schedule(12, 7)),
+               "sameh-kuck": (9, 15, chip_smoke.flat_order(9, 6))}
+
+
+def _flat_pair(cfg, hub, m, e, rng, device):
+    """Five (m, e) tiles of packed words (three random, two of edge words)
+    and five of block-FP significands (edge tiles with ``hub``)."""
+    P = torch.cat([chip_smoke.encoded_words(cfg, 3, m, e, False, rng, device),
+                   chip_smoke.edge_words(cfg, 2, m, e, rng, device)])
+    return P.contiguous(), chip_smoke.bfp_words(5, m, e, rng, device, edge=hub)
+
+
+@pytest.mark.parametrize("tile_b", [None, 2, 4])
+@pytest.mark.parametrize("order", list(FLAT_ORDERS))
+def test_flat_kernels_on_any_step_order(cuda, order, tile_b):
+    """B1 (IEEE and HUB) and B2 (conventional and HUB) bit-equal to their
+    plain versions on the RLS order, the solve augmentation and a
+    flattened Sameh–Kuck order, on a ragged batch of 5 at tile_b 2 and 4;
+    one launch each."""
+    m, e, steps = FLAT_ORDERS[order]
+    rng = np.random.default_rng(len(order) + (tile_b or 0))
+    for cfg, hub in ((CONFIGS[1], False), (CONFIGS[2], True)):
+        P, X = _flat_pair(cfg, hub, m, e, rng, cuda)
+        _check(P, cfg, steps, tile_b=tile_b)
+        before = qb.QR_BLOCKFP_LAUNCHES
+        chip_smoke.check_bfp_flat(X, hub, 24, steps, tile_b=tile_b)
+        assert qb.QR_BLOCKFP_LAUNCHES == before + 1
+
+
+@pytest.mark.parametrize("order", list(FLAT_ORDERS))
+def test_qr_packed_device_memory_tile_on_any_step_order(cuda, order,
+                                                        monkeypatch):
+    """B1 with its tiles in device memory (the shared-memory limit lowered
+    to 0) on the same orders, against its plain version and against B1
+    with its tiles in shared memory."""
+    m, e, steps = FLAT_ORDERS[order]
+    rng = np.random.default_rng(70 + len(order))
+    cfg = CONFIGS[2]
+    P, _ = _flat_pair(cfg, True, m, e, rng, cuda)
+    shared = qb.qr_packed_call(P, cfg=cfg, steps=steps, tile_b=2)
+    monkeypatch.setattr(qb, "MAX_SHARED_BYTES", 0)
+    for tile_b in (1, 2):
+        _check(P, cfg, steps, tile_b=tile_b)
+    assert torch.equal(qb.qr_packed_call(P, cfg=cfg, steps=steps), shared)
+
+
+@pytest.mark.parametrize("hub", [False, True], ids=["ieee", "hub"])
+def test_flat_kernels_on_flattened_stages_equal_wavefront(cuda, hub):
+    """B1 and B2 on a flattened Sameh–Kuck order give the words of B5a and
+    B5b on its stages, and of their plain versions, at 32 x 32 with Q."""
+    cfg = CONFIGS[2] if hub else CONFIGS[1]
+    rng = np.random.default_rng(80 + hub)
+    tabs = chip_smoke.stage_tables(32, 32)
+    flat = chip_smoke.flat_order(32, 32)
+    P = chip_smoke.encoded_words(cfg, 6, 32, 32, True, rng, cuda)
+    _check(P, cfg, flat)
+    assert torch.equal(qb.qr_packed_call(P, cfg=cfg, steps=flat),
+                       qb.qr_packed_wavefront_call(P, *tabs, cfg=cfg))
+    X = chip_smoke.bfp_words(6, 32, 64, rng, cuda, edge=hub)
+    got = chip_smoke.check_bfp_flat(X, hub, 24, flat)
+    assert torch.equal(got, qb.qr_blockfp_wavefront_call(X, *tabs, iters=24,
+                                                         hub=hub))
+
+
+def test_flat_kernels_widen_blocks_for_a_small_batch(cuda):
+    """A batch too small to fill the card runs more threads a matrix
+    (`qrd_blocked._flat_threads`); the words equal those of the narrow
+    blocks a large batch gets."""
+    steps = givens_schedule(16, 16)
+    dev = str(cuda)
+    table = qb._flat_stage_table(steps, 16, 32, dev)
+    narrow = {}
+    for kernel, threads in qb.FLAT_THREADS.items():
+        wide = qb._flat_threads(kernel, table.shape[2], 32, 3, None, dev)
+        narrow[kernel] = qb._flat_threads(kernel, table.shape[2], 32, 10 ** 6,
+                                          None, dev)
+        assert qb.FLAT_MAX_THREADS >= wide > narrow[kernel] == threads
+    P = chip_smoke.encoded_words(CONFIGS[2], 3, 16, 16, True,
+                                 np.random.default_rng(90), cuda)
+    X = chip_smoke.bfp_words(3, 16, 32, np.random.default_rng(91), cuda)
+    out = qb.qr_packed_call(P, cfg=CONFIGS[2], steps=steps)
+    bfp = chip_smoke.check_bfp_flat(X, True, 24, steps)
+    _check(P, CONFIGS[2], steps)
+    assert torch.equal(qb._qr_packed_launch(P, table, CONFIGS[2], None,
+                                            narrow["qr_packed"]), out)
+    assert torch.equal(qb._qr_blockfp_launch(X, table,
+                                             qb._blockfp_args(24, True), None,
+                                             narrow["qr_blockfp"]), bfp)
 
 
 # ---------------------------------------------------------------------------
