@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`repro_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--block-grid]
 
 Builds every CUDA kernel of the main path from ``src/repro_torch/kernels/
 csrc``, holds each against its plain PyTorch version on the card, drives
@@ -26,6 +26,7 @@ imports neither ``jax`` nor ``repro``.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import itertools
 import json
@@ -628,8 +629,8 @@ def tiled_timing(path, eng, A, work, repeats=5, lane="packed"):
     wall_ms = statistics.median(walls) * 1e3
     print(f"timing {path} at {tuple(A.shape)}: " + ", ".join(
         f"{name} {t:.3f} ms per engine call ({work[name]['steps']} steps"
-        + (f" run in {work[name]['stages']} stages)" if lane == "packed"
-           else " run in step order)")
+        + (" run in step order)" if name == "panel_apply_blockfp"
+           else f" run in {work[name]['stages']} stages)")
         for name, t in ms.items())
         + f"; engine call {wall_ms:.3f} ms host wall (median of {repeats})",
         flush=True)
@@ -684,6 +685,12 @@ def flat_shape(steps, B, m, e, device, kernel="qr_packed"):
     return (f"{len(steps)} steps -> {table.shape[1]} stages of up to "
             f"{table.shape[2]} pairs, tile_b {qb.TILE_B}, {threads} threads a "
             f"matrix")
+
+
+def steps_stages(steps, m, e):
+    """(steps, stages) of a step schedule on an m x e tile, as the flat
+    kernels run it (`qb.flat_stage_table`)."""
+    return len(steps), int(qb.flat_stage_table(steps, m, e).shape[1])
 
 
 def timing_phase(A, As, b, cfg):
@@ -1159,14 +1166,50 @@ FLAT_BLOCKS = tuple(itertools.product((1, 2, 4), (32, 64, 128, 256)))
 FLAT_BIG_THREADS = (256, 512, 1024)
 
 
+def block_lines(main, main_shape, big, big_shape, wrappers, defaults,
+                blocks=FLAT_BLOCKS, big_threads=FLAT_BIG_THREADS):
+    """Flat kernels read at other block shapes than their wrappers' own.
+    ``main`` and ``big`` map a kernel's name to ``(launch, want)``, where
+    ``launch(tile_b, threads)`` runs the kernel on its cached stage table
+    (no host work of the wrapper in the window) and ``want`` is the
+    wrapper's output, which every reading must equal.  Each of ``main`` at
+    the (tile_b, threads) of ``blocks`` (two rounds, median of 5 each),
+    each of ``big``, one matrix an SM, at ``big_threads`` threads and
+    through its wrapper ``wrappers[name]`` (five interleaved rounds, median
+    of 3 each); ``defaults[name]`` is the wrapper's threads at the big
+    shape.  Prints the `flat blocks` lines."""
+    def read(name, launch, want, tile_b, threads, repeats):
+        ms, out = _event_ms(lambda: launch(tile_b, threads), repeats)
+        compare(f"{name} at tile_b {tile_b}, {threads} threads", out, want)
+        return ms
+
+    for name, (launch, want) in main.items():
+        rounds = [[read(name, launch, want, tb, th, 5) for tb, th in blocks]
+                  for _ in range(2)]
+        cells = ", ".join(f"{tb}x{th} {a:.3f}/{b:.3f}"
+                          for (tb, th), a, b in zip(blocks, *rounds))
+        print(f"flat blocks {name} at {main_shape}, tile_b x threads "
+              f"ms (two rounds, median of 5): {cells}", flush=True)
+    readings = {(name, th): [] for name in big
+                for th in big_threads + ("wrapper",)}
+    for _ in range(5):
+        for name, (launch, want) in big.items():
+            for th in big_threads:
+                readings[name, th].append(read(name, launch, want, 1, th, 3))
+            ms, out = _event_ms(wrappers[name], 3)
+            compare(f"{name} wrapper at {big_shape}", out, want)
+            readings[name, "wrapper"].append(ms)
+    for name in big:
+        cells = "; ".join(f"{th}: " + ", ".join(f"{v:.3f}" for v in readings[name, th])
+                          for th in big_threads + ("wrapper",))
+        print(f"flat blocks {name} at {big_shape} (tile_b 1; the wrapper "
+              f"runs {defaults[name]} threads), ms in five rounds (median of 3 "
+              f"each): {cells}", flush=True)
+
+
 def flat_block_phase(A, cfg):
-    """B1 and B2 at the block shapes of `FLAT_BLOCKS` (two rounds, median
-    of 5 each) and, one matrix an SM, at `FLAT_BIG_THREADS` threads (five
-    interleaved rounds, median of 3 each), beside their wrappers' default.
-    The kernels run through `qb._qr_packed_launch`/`_qr_blockfp_launch` on
-    the cached stage table, so these windows hold no host work of the
-    wrapper; the wrapper's own window at the big shape is read in the same
-    rounds.  Every output must equal the wrapper's."""
+    """B1 and B2 at other block shapes (`block_lines`): at the main path's
+    shape and, one matrix an SM, at (BIG_BATCH, BIG_M, 2 BIG_M)."""
     unit = GivensUnit(cfg)
     bfp_args = qb._blockfp_args(24, True)
 
@@ -1186,43 +1229,17 @@ def flat_block_phase(A, cfg):
                                                             tb, th),
                        qb.qr_blockfp_call(X, iters=24, hub=True, steps=steps))}
 
-    def read(name, launch, want, tile_b, threads, repeats):
-        ms, out = _event_ms(lambda: launch(tile_b, threads), repeats)
-        compare(f"{name} at tile_b {tile_b}, {threads} threads", out, want)
-        return ms
-
     main = kernels(*operands(A, M))
-    for name, (launch, want) in main.items():
-        rounds = [[read(name, launch, want, tb, th, 5) for tb, th in FLAT_BLOCKS]
-                  for _ in range(2)]
-        cells = ", ".join(f"{tb}x{th} {a:.3f}/{b:.3f}"
-                          for (tb, th), a, b in zip(FLAT_BLOCKS, *rounds))
-        print(f"flat blocks {name} at {(BATCH, M, 2 * M)}, tile_b x threads "
-              f"ms (two rounds, median of 5): {cells}", flush=True)
-
     P, X, steps, table = operands(torch.tensor(big_operand(), device=A.device),
                                   BIG_M)
-    big = kernels(P, X, steps, table)
     wrappers = {"B1": lambda: qb.qr_packed_call(P, cfg=cfg, steps=steps),
                 "B2": lambda: qb.qr_blockfp_call(X, iters=24, hub=True,
                                                  steps=steps)}
-    readings = {(name, th): [] for name in big
-                for th in FLAT_BIG_THREADS + ("wrapper",)}
-    for _ in range(5):
-        for name, (launch, want) in big.items():
-            for th in FLAT_BIG_THREADS:
-                readings[name, th].append(read(name, launch, want, 1, th, 3))
-            ms, out = _event_ms(wrappers[name], 3)
-            compare(f"{name} wrapper at {tuple(P.shape)}", out, want)
-            readings[name, "wrapper"].append(ms)
-    for name, kernel in (("B1", "qr_packed"), ("B2", "qr_blockfp")):
-        default = qb._flat_threads(kernel, table.shape[2], 2 * BIG_M,
-                                   BIG_BATCH, None, str(A.device))
-        cells = "; ".join(f"{th}: " + ", ".join(f"{v:.3f}" for v in readings[name, th])
-                          for th in FLAT_BIG_THREADS + ("wrapper",))
-        print(f"flat blocks {name} at {tuple(P.shape)} (tile_b 1; the wrapper "
-              f"runs {default} threads), ms in five rounds (median of 3 "
-              f"each): {cells}", flush=True)
+    defaults = {name: qb._flat_threads(kernel, table.shape[2], 2 * BIG_M,
+                                       BIG_BATCH, None, str(A.device))
+                for name, kernel in (("B1", "qr_packed"), ("B2", "qr_blockfp"))}
+    block_lines(main, (BATCH, M, 2 * M), kernels(P, X, steps, table),
+                tuple(P.shape), wrappers, defaults)
 
 
 # ---------------------------------------------------------------------------
@@ -1790,6 +1807,13 @@ def complex_path(device):
           f"{plain['qr_packed_complex'][0]:.1f} and "
           f"{plain['qr_packed_complex_wavefront'][0]:.1f} ms for one launch at "
           f"{PLAIN_BATCH} matrices", flush=True)
+    orders = {"path": (steps, BATCH, M, M + N_COLS),
+              "solve": (givens_schedule(M, N_SOLVE + 1), BATCH, M, N_SOLVE + 1),
+              "128x128": (givens_schedule(BIG_M, BIG_M), BIG_BATCH, BIG_M,
+                          2 * BIG_M)}
+    print("qr_packed_complex (B7a) on the column-major steps: " + "; ".join(
+        f"{name} {flat_shape(o[0], *o[1:], device, 'qr_packed_complex')}"
+        for name, o in orders.items()), flush=True)
 
     # 128 x 128 with Q: (128, 256, 2) int64 tiles, 512 KiB, in device memory
     Ab = torch.tensor(complex_operands(BIG_BATCH, BIG_M, BIG_M, SEED + 15),
@@ -1831,7 +1855,37 @@ def complex_path(device):
                 shape=list(P.shape), big_ms={"qr_packed_complex": big_flat_ms,
                                              "qr_packed_complex_wavefront":
                                                  big_wave_ms},
-                big_shape=list(Pb.shape))
+                big_shape=list(Pb.shape), words=(P, Pb),
+                stages={name: steps_stages(o[0], o[2], o[3])
+                        for name, o in orders.items()})
+
+
+def complex_block_phase(P, Pb, cfg, grid=False):
+    """B7a at other block shapes (`block_lines`) on the column-major steps
+    of the complex path's words [A | I] at (BATCH, M, 2 M, 2) and, one
+    matrix an SM, at (BIG_BATCH, BIG_M, 2 BIG_M, 2), tiles in device
+    memory: by default at the wrapper's own block shape at the first, and
+    at its `FLAT_THREADS` entry and its widened threads at the second; with
+    ``grid`` (``--block-grid``) at `FLAT_BLOCKS` and `FLAT_BIG_THREADS`,
+    the readings that chose the entry."""
+    def kernel(X):
+        m = X.shape[1]
+        steps = givens_schedule(m, m)
+        table = qb._flat_stage_table(steps, m, X.shape[2], str(X.device))
+        want = qb.qr_packed_complex_call(X, cfg=cfg, steps=steps)
+        threads = qb._flat_threads("qr_packed_complex", table.shape[2],
+                                   X.shape[2], X.shape[0], None, str(X.device))
+        return threads, {"B7a": (lambda tb, th: qb._qr_packed_complex_launch(
+            X, table, cfg, tb, th), want)}, (
+                lambda: qb.qr_packed_complex_call(X, cfg=cfg, steps=steps))
+
+    threads, main, _ = kernel(P)
+    default, big, wrapper = kernel(Pb)
+    blocks, big_threads = (FLAT_BLOCKS, FLAT_BIG_THREADS) if grid else (
+        ((qb.TILE_B, threads),),
+        tuple(sorted({qb.FLAT_THREADS["qr_packed_complex"], default})))
+    block_lines(main, tuple(P.shape), big, tuple(Pb.shape), {"B7a": wrapper},
+                {"B7a": default}, blocks, big_threads)
 
 
 # ---------------------------------------------------------------------------
@@ -2450,6 +2504,11 @@ def rotator_entries(rot):
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--block-grid", action="store_true",
+                        help="read B7a at every block shape of FLAT_BLOCKS "
+                             "and FLAT_BIG_THREADS, not only its own")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one GPU",
               file=sys.stderr)
@@ -2463,10 +2522,10 @@ def main():
           f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}",
           flush=True)
 
-    return run(device)
+    return run(device, args.block_grid)
 
 
-def run(device):
+def run(device, block_grid=False):
     """Every phase on ``device``; returns 0 or exits non-zero."""
     t0 = time.perf_counter()
     sources = ["qr_packed", "panel_packed", "blockfp", "wavefront",
@@ -2513,6 +2572,7 @@ def run(device):
     wave_big = wavefront_big_phase(device)
     complex_parity_phase(device)
     cplx = complex_path(device)
+    complex_block_phase(*cplx["words"], cfg, block_grid)
     t_lanes = time.perf_counter()
     lanes_parity_phase(device)
     lanes = lanes_full_phase(device, A)
@@ -2734,6 +2794,24 @@ def run(device):
         })
     kernels += lane_entries(lanes, lane_launches, timing, big)
     kernels += rotator_entries(rot)
+    stages = {
+        "qr_packed": {"path": steps_stages(givens_schedule(M, N_COLS), M,
+                                           M + N_COLS),
+                      "solve": steps_stages(givens_schedule(M, N_SOLVE + 1), M,
+                                            N_SOLVE + 1)},
+        "qr_packed_complex": cplx["stages"]}
+    for name, panel_work, tsqr_work_ in (
+            ("panel_factor_packed", panel["work"], tsqr["work"]),
+            ("panel_factor_blockfp", bfp_panel["work"], bfp_tsqr["work"])):
+        stages[name] = {path: (w[name]["steps"], w[name]["stages"])
+                        for path, w in (("panel", panel_work),
+                                        ("tsqr", tsqr_work_))}
+    labels = {"qr_packed": "B1", "qr_packed_complex": "B7a",
+              "panel_factor_packed": "B3a", "panel_factor_blockfp": "B4a"}
+    print("steps -> stages per engine call: " + "; ".join(
+        f"{name} ({labels[name]}) " + ", ".join(
+            f"{path} {st} -> {sg}" for path, (st, sg) in by_path.items())
+        for name, by_path in stages.items()), flush=True)
     print(f"engine call host wall: panel path {panel_wall:.3f} ms, tsqr path "
           f"{tsqr_wall:.3f} ms; block-FP panel path {bfp_panel_wall:.3f} ms, "
           f"tsqr path {bfp_tsqr_wall:.3f} ms", flush=True)

@@ -17,11 +17,13 @@
 //    0, run in the stages of qrd_blocked.flat_stage_table (as qr_packed.cu
 //    does; the words are the step order's).  Equal to
 //    qr_blockfp_reference.
-//  * panel_factor_blockfp: the fused steps, in step order, on an mr x pw
-//    panel, writing each step's (flip, sigma) as int32 into the (B, S)
-//    outputs.  Equal to panel_factor_blockfp_reference: the JAX body
-//    rotates at uniform width and restores the lanes left of the lead;
-//    here those lanes are simply not touched.
+//  * panel_factor_blockfp: the fused steps on an mr x pw panel, run in the
+//    stages of ops.panel_stages (qrd_blocked.levelize_steps, as
+//    panel_packed.cu runs them; the words are the step order's), writing
+//    each step's (flip, sigma) as int32 into the (B, S) outputs in step
+//    order.  Equal to panel_factor_blockfp_reference: the JAX body rotates
+//    at uniform width and restores the lanes left of the lead; here those
+//    lanes are simply not touched.
 //  * panel_apply_blockfp: every (piv, tgt, flip, sigma) step replayed on
 //    the trailing mr x w region.  Equal to panel_apply_blockfp_reference.
 // Panel by panel the last two run the flat kernel's column-major steps in
@@ -45,11 +47,15 @@
 //    thread per pair vectors the lead once, then the matrix's threads
 //    replay the control word over the stage's live (pair, column) items;
 //    two barriers a stage.
-//  * panel_factor_blockfp runs the step loop bfp::factor_tile
-//    (blockfp_unit.cuh): threads of a row (blockDim.x) stride over the
-//    elements col..e-1; each thread runs the lead's vectoring itself, then
-//    replays the control word on its own elements in place; two barriers a
-//    step.
+//  * panel_factor_blockfp runs the panel's (4, S', P) stage table (pivot,
+//    target, column, step index; 2016 steps -> 335 stages a panel call at
+//    (1024, 64, 64), 11168 -> 1648 a TSQR call at (32, 4096, 32)) with
+//    wf::run_stages on B2's pair step: one thread per pair vectors the
+//    lead once and writes the control word to shared memory and to
+//    flip/sig at the pair's step index, then the panel's threads spread
+//    over (pair, column) and replay it; two barriers a stage.  One block
+//    holds `tile_b` panels (blockDim.y) and their control words in shared
+//    memory; the wrapper caps tile_b.
 //  * panel_factor_blockfp and panel_apply_blockfp work in place on
 //    row-strided views of the (B, m, e) working buffer (batch stride sb,
 //    row stride ld, unit column stride), as panel_packed.cu does.  The
@@ -80,20 +86,41 @@ __global__ void qr_blockfp_kernel(const i32* __restrict__ in, i32* out,
   if (live) bfp::copy_tile(out + b * me, e, T, e, m, e);
 }
 
-__global__ void panel_factor_blockfp_kernel(
-    i32* P, long long sb, long long ld, int B, int mr, int pw,
-    const int* __restrict__ piv, const int* __restrict__ tgt,
-    const int* __restrict__ col, int S, i32* __restrict__ flip,
-    i32* __restrict__ sig, Params u) {
-  extern __shared__ i32 tiles[];
+// B4a's pair step: B2's (wf::BlockfpStage), its control word also written
+// to this panel's (S,) outputs at the pair's step index, in step order for
+// panel_apply_blockfp.
+struct PanelBlockfpStage : wf::BlockfpStage {
+  const int* step;  // the (S', P) step indices: entry p of stage s at s * P + p
+  int P;
+  i32* flip;
+  i32* sig;
+  __device__ __forceinline__ void lead(int s, int p, int k, int j,
+                                       int c) const {
+    wf::BlockfpStage::lead(s, p, k, j, c);
+    const int st = __ldg(step + s * P + p);
+    flip[st] = ctrl[2 * p];
+    sig[st] = ctrl[2 * p + 1];
+  }
+};
+
+__global__ void panel_factor_blockfp_kernel(i32* P, long long sb, long long ld,
+                                            int B, int mr, int pw,
+                                            wf::Tables t, int S,
+                                            i32* __restrict__ flip,
+                                            i32* __restrict__ sig, Params u) {
+  extern __shared__ i32 panel_smem32[];
   const long long b = (long long)blockIdx.x * blockDim.y + threadIdx.y;
   const bool live = b < B;  // the ragged edge of the last block
   i32* src = P + (live ? b : 0) * sb;
-  i32* T = tiles + (long long)threadIdx.y * mr * pw;
+  i32* T = panel_smem32 + (long long)threadIdx.y * mr * pw;
+  i32* ctrl = panel_smem32 + (long long)blockDim.y * mr * pw +
+              (long long)threadIdx.y * t.P * 2;
   if (live) bfp::copy_tile(T, pw, src, ld, mr, pw);
   __syncthreads();
-  bfp::factor_tile(T, pw, pw, piv, tgt, col, 1, S, live, u,
-                   flip + (live ? b : 0) * S, sig + (live ? b : 0) * S);
+  const long long o = (live ? b : 0) * S;
+  const PanelBlockfpStage body{{T, pw, &u, ctrl}, t.tab + 3 * t.ts, t.ss,
+                               flip + o, sig + o};
+  wf::run_stages(t, mr, pw, live, body);
   if (live) bfp::copy_tile(src, ld, T, pw, mr, pw);
 }
 
@@ -141,22 +168,22 @@ int qr_blockfp_launch(const void* in, void* out, const void* tables, int B,
 }
 
 int panel_factor_blockfp_launch(void* P, long long sb, long long ld, int B,
-                                int mr, int pw, const void* piv,
-                                const void* tgt, const void* col, int S,
-                                void* flip, void* sig, int tile_b,
-                                int threads_x, int iters, int hub, int comp,
-                                void* stream) {
+                                int mr, int pw, const void* tables, int stages,
+                                int pairs, int S, void* flip, void* sig,
+                                int tile_b, int threads_x, int iters, int hub,
+                                int comp, void* stream) {
   const Params u = {iters, hub, comp};
+  const wf::Tables t = {(const int*)tables, (long long)stages * pairs, pairs,
+                        stages, pairs};
   const dim3 block(threads_x, tile_b);
   const dim3 grid((B + tile_b - 1) / tile_b);
-  const size_t smem = (size_t)tile_b * mr * pw * sizeof(i32);
+  const size_t smem = (size_t)tile_b * (mr * pw + 2 * pairs) * sizeof(i32);
   cudaError_t err = cudaFuncSetAttribute(
       panel_factor_blockfp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   panel_factor_blockfp_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      (i32*)P, sb, ld, B, mr, pw, (const int*)piv, (const int*)tgt,
-      (const int*)col, S, (i32*)flip, (i32*)sig, u);
+      (i32*)P, sb, ld, B, mr, pw, t, S, (i32*)flip, (i32*)sig, u);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
 // The int32 block-FP CORDIC Givens step as device functions: one function
 // per function of repro_torch/kernels/cordic_givens.py (the plain version),
-// and the step loop of the block-FP QR kernels (blockfp.cu).
+// and the tile copy of the block-FP kernels (blockfp.cu, wavefront.cu).
 //
 // Hazards of C++ that XLA's int32 does not have, and what is done here:
 //  * Signed overflow is undefined behaviour in C++, while XLA's int32 adds,
@@ -130,52 +130,6 @@ __device__ __forceinline__ void copy_tile(i32* dst, long long ldd,
   for (int idx = threadIdx.x; idx < rows * e; idx += blockDim.x) {
     const int r = idx / e, c = idx - r * e;
     dst[r * ldd + c] = src[r * lds + c];
-  }
-}
-
-// Runs the S steps (piv[s*ts], tgt[s*ts], col[s*ts]) on the tile T, whose
-// rows hold e elements at stride ld: fused_rotate_block on rows piv and
-// tgt from column col, then the target lead forced to 0.  Every thread of
-// a row runs the lead's vectoring itself and replays the control word on
-// its own elements in place; two barriers a step, so every thread of the
-// block calls this, `live` or not.  With flip_out, thread 0 also writes
-// each step's control word (flip_out[s], sig_out[s]).  Lanes left of col
-// are never touched, which is the panel factorization's restore of the
-// left lanes.
-__device__ __forceinline__ void factor_tile(i32* T, long long ld, int e,
-                                            const int* __restrict__ piv,
-                                            const int* __restrict__ tgt,
-                                            const int* __restrict__ col,
-                                            int ts, int S, bool live,
-                                            const Params& u, i32* flip_out,
-                                            i32* sig_out) {
-  for (int s = 0; s < S; ++s) {
-    const int k = __ldg(piv + s * ts);
-    const int j = __ldg(tgt + s * ts);
-    const int c = __ldg(col + s * ts);
-    i32* rx = T + k * ld;
-    i32* ry = T + j * ld;
-    i32 xl = 0, yl = 0;
-    if (live) {
-      xl = rx[c];
-      yl = ry[c];
-    }
-    __syncthreads();  // the lead pair is read before its owner overwrites it
-    if (live) {
-      i32 flip, sig;
-      vector_lead(xl, yl, u, flip, sig);
-      if (flip_out != nullptr && threadIdx.x == 0) {
-        flip_out[s] = flip;
-        sig_out[s] = sig;
-      }
-      for (int idx = c + threadIdx.x; idx < e; idx += blockDim.x) {
-        i32 x = rx[idx], y = ry[idx];
-        replay(x, y, u, flip, sig);
-        rx[idx] = x;
-        ry[idx] = idx == c ? 0 : y;  // structural zero (systolic array)
-      }
-    }
-    __syncthreads();
   }
 }
 

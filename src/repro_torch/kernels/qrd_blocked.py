@@ -19,7 +19,8 @@ wrappers, launch counters and plain PyTorch versions.
   `panel_apply_blockfp_call` (``csrc/blockfp.cu``) replace their namesakes
   of the JAX package on the int32 block-FP datapath: the same three jobs on
   int32 significands with one shared exponent per (matrix, column) (the
-  flat one in the stages of `flat_stage_table`),
+  flat one in the stages of `flat_stage_table`, the panel factor in those
+  of `levelize_steps`),
   bit-identical to `qr_blockfp_reference`,
   `panel_factor_blockfp_reference` and `panel_apply_blockfp_reference`,
   loops of `repro_torch.kernels.cordic_givens.fused_rotate_block`,
@@ -35,7 +36,8 @@ wrappers, launch counters and plain PyTorch versions.
 * `qr_packed_complex_call` and `qr_packed_complex_wavefront_call`
   (``csrc/complex_packed.cu``) replace their namesakes of the JAX package:
   the three-rotation complex Givens QR on (B, m, e, 2) packed (re, im)
-  words, step by step and stage by stage.  Bit-identical to
+  words, in the levelized stages of `flat_stage_table` and in Sameh–Kuck
+  stages.  Bit-identical to
   `qr_packed_complex_reference`, the loop of
   `GivensUnit.rotate_rows_complex`, and to
   `qr_packed_complex_wavefront_reference`.
@@ -102,8 +104,9 @@ TILE_B = 1
 
 #: Threads per matrix of the flat kernels' stage loop at a batch that
 #: fills the card, by kernel: of 32 to 256 at tile_b 1, the fastest at the
-#: flat route's (8192, 32, 64) on an H100 (`_flat_threads`).
-FLAT_THREADS = {"qr_packed": 128, "qr_blockfp": 32}
+#: flat route's (8192, 32, 64) on an H100 (`_flat_threads`); the complex
+#: kernel's at (8192, 32, 64, 2).
+FLAT_THREADS = {"qr_packed": 128, "qr_blockfp": 32, "qr_packed_complex": 256}
 
 #: The most threads per matrix `_flat_threads` widens a small batch's
 #: blocks to: of 256, 512 and 1024, the fastest for B1 and B2 at
@@ -235,14 +238,6 @@ def _lane_args(cfg: GivensConfig):
     return (*k.values(), comp >> 32, comp & 0xFFFFFFFF, p)
 
 
-def _threads_x(e: int) -> int:
-    """Threads of a row of the complex flat kernel (its steps run as stages
-    of one pair) and of `bfp::factor_tile` (the block-FP panel
-    factorization): one per element up to a warp, then whole warps, at
-    most 256."""
-    return e if e <= 32 else min(-(-e // 32) * 32, 256)
-
-
 def _block_shape(fn: str, tile_b, threads_x: int) -> int:
     """Tiles per block (default `TILE_B`); a block of more than 1024
     threads raises ValueError."""
@@ -319,8 +314,8 @@ def _card_threads(device: str) -> int:
 
 def _flat_threads(kernel: str, pairs: int, e: int, B: int, tile_b,
                   device: str) -> int:
-    """Threads per matrix of the flat kernel ``kernel`` ('qr_packed' or
-    'qr_blockfp'): its `FLAT_THREADS`, doubled while the grid's threads
+    """Threads per matrix of the flat kernel ``kernel`` ('qr_packed',
+    'qr_blockfp' or 'qr_packed_complex'): its `FLAT_THREADS`, doubled while the grid's threads
     still fit the card at once (`_card_threads`) — a batch too small to
     fill the card spreads each matrix over more threads rather than leave
     SMs idle — up to `FLAT_MAX_THREADS`, and at most one per (pair, column)
@@ -756,7 +751,10 @@ def panel_factor_blockfp_call(X, piv, tgt, col, *, iters: int, hub: bool,
     Returns
     -------
     (X, flip, sig) — ``X`` factored in place; ``flip``/``sig`` (B, S) int32
-    control words for `panel_apply_blockfp_call`.
+    control words, in step order, for `panel_apply_blockfp_call`.
+
+    The kernel runs the steps in the stages of `levelize_steps`, as
+    `panel_factor_packed_call` does; the words equal the step order's.
     """
     global PANEL_FACTOR_BLOCKFP_LAUNCHES
     args = _blockfp_args(iters, hub)
@@ -766,20 +764,21 @@ def panel_factor_blockfp_call(X, piv, tgt, col, *, iters: int, hub: bool,
         X.copy_(out)
         return X, flip, sig
     B, mr, pw = X.shape
-    tables = _panel_tables((_host_table(piv), _host_table(tgt)),
-                           _host_table(col), mr, pw, str(X.device))
-    S = tables[0].shape[0]
-    threads_x = _threads_x(pw)
+    rows = (_host_table(piv), _host_table(tgt))
+    table = _panel_stage_table(rows, _host_table(col), mr, pw, str(X.device))
+    S = len(rows[0])
+    stages, pairs = table.shape[1:]
+    threads_x = _stage_threads(pairs, pw)
     tile_b = _shared_tile_b(tile_b, "panel_factor_blockfp_call", threads_x,
-                            mr * pw * 4, max(1, 32 // threads_x))
+                            (mr * pw + 2 * pairs) * 4, PANEL_TILE_B)
     flip = torch.empty((B, S), dtype=torch.int32, device=X.device)
     sig = torch.empty_like(flip)
     if B == 0 or S == 0:
         return X, flip, sig
     err = _lib("blockfp").panel_factor_blockfp_launch(
-        X.data_ptr(), X.stride(0), X.stride(1), B, mr, pw,
-        *(t.data_ptr() for t in tables), S, flip.data_ptr(), sig.data_ptr(),
-        tile_b, threads_x, *args, _stream(X))
+        X.data_ptr(), X.stride(0), X.stride(1), B, mr, pw, table.data_ptr(),
+        stages, pairs, S, flip.data_ptr(), sig.data_ptr(), tile_b, threads_x,
+        *args, _stream(X))
     _check_launch("blockfp", err)
     PANEL_FACTOR_BLOCKFP_LAUNCHES += 1
     return X, flip, sig
@@ -1136,17 +1135,32 @@ def qr_packed_complex_call(P, *, cfg: GivensConfig, steps,
     (B, m, e, 2) int64 — bit-identical to `qr_packed_complex_reference`.
     A block's tiles beyond `MAX_SHARED_BYTES` are factorized in place in
     device memory.
+
+    The kernel runs the steps in the levels of `flat_stage_table` with the
+    matrix's threads (`_flat_threads`) over the stage's live (pair,
+    column) items, as `qr_packed_call` does; the words equal the step
+    order's.  Out-of-range steps raise ValueError.
     """
-    global QR_PACKED_COMPLEX_LAUNCHES
-    steps = tuple(tuple(int(v) for v in s) for s in steps)
+    steps = tuple(map(tuple, steps))
     if _check_pairs("qr_packed_complex_call", P):
         return qr_packed_complex_reference(P, cfg=cfg, steps=steps)
     B, m, e, _ = P.shape
-    table = _step_table(steps, m, e, str(P.device))
+    table = _flat_stage_table(steps, m, e, str(P.device))
+    threads_x = _flat_threads("qr_packed_complex", table.shape[2], e, B,
+                              tile_b, str(P.device))
+    return _qr_packed_complex_launch(P, table, cfg, tile_b, threads_x)
+
+
+def _qr_packed_complex_launch(P, table, cfg: GivensConfig, tile_b,
+                              threads_x: int):
+    """B7a on a CUDA tensor: the stages of ``table`` (`_flat_stage_table`)
+    with ``threads_x`` threads a matrix and ``tile_b`` matrices a block."""
+    global QR_PACKED_COMPLEX_LAUNCHES
+    pairs = table.shape[2]
     out = _packed_launch("qr_packed_complex_call", "complex_packed", P, table,
-                         (len(steps),), 1, _threads_x(e), 8, tile_b,
+                         table.shape[1:], pairs, threads_x, 8, tile_b,
                          _unit_args(cfg))
-    QR_PACKED_COMPLEX_LAUNCHES += int(B > 0)
+    QR_PACKED_COMPLEX_LAUNCHES += int(P.shape[0] > 0)
     return out
 
 

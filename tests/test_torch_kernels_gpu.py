@@ -381,27 +381,35 @@ def test_flat_kernels_on_flattened_stages_equal_wavefront(cuda, hub):
 def test_flat_kernels_widen_blocks_for_a_small_batch(cuda):
     """A batch too small to fill the card runs more threads a matrix
     (`qrd_blocked._flat_threads`); the words equal those of the narrow
-    blocks a large batch gets."""
-    steps = givens_schedule(16, 16)
+    blocks a large batch gets.  B1, B2 and the complex B7a, at 32 x 32
+    with Q (their narrow blocks, up to 256 threads, leave room to widen)."""
+    steps = givens_schedule(32, 32)
     dev = str(cuda)
-    table = qb._flat_stage_table(steps, 16, 32, dev)
+    table = qb._flat_stage_table(steps, 32, 64, dev)
     narrow = {}
     for kernel, threads in qb.FLAT_THREADS.items():
-        wide = qb._flat_threads(kernel, table.shape[2], 32, 3, None, dev)
-        narrow[kernel] = qb._flat_threads(kernel, table.shape[2], 32, 10 ** 6,
+        wide = qb._flat_threads(kernel, table.shape[2], 64, 3, None, dev)
+        narrow[kernel] = qb._flat_threads(kernel, table.shape[2], 64, 10 ** 6,
                                           None, dev)
         assert qb.FLAT_MAX_THREADS >= wide > narrow[kernel] == threads
-    P = chip_smoke.encoded_words(CONFIGS[2], 3, 16, 16, True,
+    P = chip_smoke.encoded_words(CONFIGS[2], 3, 32, 32, True,
                                  np.random.default_rng(90), cuda)
-    X = chip_smoke.bfp_words(3, 16, 32, np.random.default_rng(91), cuda)
+    X = chip_smoke.bfp_words(3, 32, 64, np.random.default_rng(91), cuda)
+    C = chip_smoke.complex_words(CONFIGS[2], 3, 32, 32, True,
+                                 np.random.default_rng(92), cuda)
     out = qb.qr_packed_call(P, cfg=CONFIGS[2], steps=steps)
     bfp = chip_smoke.check_bfp_flat(X, True, 24, steps)
     _check(P, CONFIGS[2], steps)
+    cplx = qb.qr_packed_complex_call(C, cfg=CONFIGS[2], steps=steps)
     assert torch.equal(qb._qr_packed_launch(P, table, CONFIGS[2], None,
                                             narrow["qr_packed"]), out)
     assert torch.equal(qb._qr_blockfp_launch(X, table,
                                              qb._blockfp_args(24, True), None,
                                              narrow["qr_blockfp"]), bfp)
+    assert torch.equal(qb._qr_packed_complex_launch(
+        C, table, CONFIGS[2], None, narrow["qr_packed_complex"]), cplx)
+    assert torch.equal(qb._qr_packed_complex_launch(C, table, CONFIGS[2], 1,
+                                                    1024), cplx)
 
 
 # ---------------------------------------------------------------------------
@@ -499,6 +507,70 @@ def test_complex_kernels_bit_equal_to_plain_versions(cuda, i):
     assert chip_smoke.packed_is_zero(got[..., 1], cfg.fmt).all()
     assert qb.QR_PACKED_COMPLEX_LAUNCHES == before[0] + 17
     assert qb.QR_PACKED_COMPLEX_WAVEFRONT_LAUNCHES == before[1] + 8
+
+
+#: name -> (m, n, compute_q, steps) of the complex flat kernel's step
+#: orders: column-major with Q, the solve augmentation [A | b] and a
+#: flattened Sameh–Kuck order with Q.
+COMPLEX_ORDERS = {"col": (9, 5, True, givens_schedule(9, 5)),
+                  "solve": (9, 6, False, givens_schedule(9, 6)),
+                  "sameh-kuck": (7, 5, True, chip_smoke.flat_order(7, 5))}
+
+
+@pytest.mark.parametrize("mode", ["shared", "device"])
+@pytest.mark.parametrize("order", list(COMPLEX_ORDERS))
+def test_complex_flat_kernel_stages_on_any_step_order(cuda, monkeypatch,
+                                                      order, mode):
+    """B7a in levelized stages bit-equal to its plain version on three step
+    orders, a ragged batch of 5 (random and edge words, HUB and IEEE) at
+    tile_b 1 and 2, with its tiles in shared or in device memory; one
+    launch a call."""
+    m, n, cq, steps = COMPLEX_ORDERS[order]
+    if mode == "device":
+        monkeypatch.setattr(qb, "MAX_SHARED_BYTES", 0)
+    rng = np.random.default_rng(100 + len(order) + len(mode))
+    for cfg, edge in ((CONFIGS[0], True), (CONFIGS[3], False)):
+        C = chip_smoke.complex_words(cfg, 5, m, n, cq, rng, cuda, edge)
+        for tile_b in (1, 2):
+            before = qb.QR_PACKED_COMPLEX_LAUNCHES
+            chip_smoke.check_plain(f"qr_packed_complex {order}",
+                                   qb.qr_packed_complex_call,
+                                   qb.qr_packed_complex_reference, C, cfg=cfg,
+                                   steps=steps, tile_b=tile_b)
+            assert qb.QR_PACKED_COMPLEX_LAUNCHES == before + 1
+
+
+#: (mr, nc) of the block-FP panel factor's panels: fewer columns than rows,
+#: nc = mr - 1 (the last column annihilates nothing more) and more columns
+#: than rows.
+BFP_PANELS = ((12, 6), (9, 8), (5, 9))
+
+
+@pytest.mark.parametrize("hub", [False, True], ids=["conv", "hub"])
+@pytest.mark.parametrize("mr,nc", BFP_PANELS)
+def test_blockfp_panel_factor_stages_bit_equal(cuda, mr, nc, hub):
+    """B4a in stages: the panel's words and the (flip, sigma) control words,
+    in step order, bit-equal to its plain version, on a strided view of a
+    wider buffer that stays untouched outside the panel, at the default
+    tile_b and at 1 and 4 (ragged)."""
+    rng = np.random.default_rng(110 + mr + nc + hub)
+    piv, tgt, col = ops.panel_steps(mr, nc)
+    kw = dict(iters=24, hub=hub)
+    for tile_b in (None, 1, 4):
+        W = chip_smoke.bfp_words(5, mr + 2, nc + 3, rng, cuda, edge=hub)
+        keep = W.clone()
+        view = W[:, 2:, 1:1 + nc]
+        want = qb.panel_factor_blockfp_reference(view, piv, tgt, col, **kw)
+        before = qb.PANEL_FACTOR_BLOCKFP_LAUNCHES
+        got = qb.panel_factor_blockfp_call(view, piv, tgt, col, tile_b=tile_b,
+                                           **kw)
+        torch.cuda.synchronize()
+        assert qb.PANEL_FACTOR_BLOCKFP_LAUNCHES == before + 1
+        assert got[0] is view
+        for g, w in zip(got, want):
+            assert g.dtype == torch.int32 and torch.equal(g, w)
+        keep[:, 2:, 1:1 + nc] = want[0]
+        assert torch.equal(W, keep)
 
 
 def test_wavefront_and_complex_device_memory_tiles_at_128(cuda):

@@ -12,6 +12,10 @@ JAX package on the CPU.
   HUB and IEEE.
 * `qr_packed_wavefront_reference` on a panel's stage tables gives
   `panel_factor_packed_reference`'s words.
+* The block-FP panel factor's plain version, fed the flattened stage order
+  (as the kernel B4a runs it), gives the step order's significands and,
+  mapped back through the step indices, its control words, HUB and
+  conventional.
 
 Inputs are made with numpy from a seed; every JAX call runs once, in a
 module-scoped fixture.
@@ -144,3 +148,29 @@ def test_wavefront_reference_on_panel_stages_equals_panel_factor(mr, nc):
     got = tqb.qr_packed_wavefront_reference(P, *tables, cfg=tc)
     assert torch.equal(got, want)
 
+
+
+@pytest.mark.parametrize("hub", [False, True], ids=["conv", "hub"])
+@pytest.mark.parametrize("mr,nc", [(12, 6), (9, 8), (5, 9)])
+def test_blockfp_panel_factor_stage_order_equals_step_order(mr, nc, hub):
+    """`panel_factor_blockfp_reference` fed the flattened stage order of
+    `ops.panel_stages` (as B4a runs it) gives the step order's
+    significands, and its (flip, sigma), mapped back through the step
+    indices, the step order's; tests/test_torch_blockfp.py holds the step
+    order to the JAX package."""
+    rng = np.random.default_rng(mr * nc + hub)
+    X = torch.tensor(rng.integers(-2 ** 24, 2 ** 24 + 1, size=(3, mr, nc)),
+                     dtype=torch.int32)
+    X[2, :, 0] = 2 ** 24                           # the largest amax
+    X[2, 1, :] = 0                                 # a zero lead row
+    steps = tops.panel_steps(mr, nc)
+    tables, step = tops.panel_stages(mr, nc)
+    live = step >= 0
+    kw = dict(iters=24, hub=hub)
+    want, flip, sig = tqb.panel_factor_blockfp_reference(X, *steps, **kw)
+    got, sflip, ssig = tqb.panel_factor_blockfp_reference(
+        X, *(t[live] for t in tables), **kw)
+    assert torch.equal(got, want)
+    back = np.empty(live.sum(), dtype=np.int64)
+    back[step[live]] = np.arange(live.sum())       # stage position of each step
+    assert torch.equal(sflip[:, back], flip) and torch.equal(ssig[:, back], sig)
