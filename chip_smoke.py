@@ -18,9 +18,12 @@ int64 route), the standalone rotator's row API
 (``givens_rotate_rows_fixed`` and ``_fused``) at 32 Mi elements, the three
 baselines (``jnp``, ``givens_float``, ``fixed``) and
 ``examples/torch_quickstart.py``,
-checks the results, times the kernels with CUDA events, and prints one
-JSON line describing each kernel followed by a final ``{"ok": true,
-"device": ...}`` line.  Any failed phase exits non-zero.
+checks the results, times the kernels with CUDA events (the panel
+kernels also by TSQR level, the block-FP ones also kernel only on their
+captured launches, and every block-FP panel apply launch of the tiled
+paths is held against its plain version on two matrices), and
+prints one JSON line describing each kernel followed by a final
+``{"ok": true, "device": ...}`` line.  Any failed phase exits non-zero.
 There is no CPU fallback: without a CUDA device the script fails.  It
 imports neither ``jax`` nor ``repro``.
 """
@@ -555,17 +558,44 @@ def wrapped_panel_kernels(wrap, lane="packed"):
         setattr(qb, attr, orig[name])
 
 
-def capture_first(store):
+def capture_first(store, checked=None):
     """A `wrapped_panel_kernels` wrapper that keeps a copy of the arguments
-    of each kernel's first launch (its inputs, before the in-place call)."""
+    of each kernel's first launch (its inputs, before the in-place call).
+    With a list ``checked``, every launch of the block-FP panel apply B4b
+    is also held against its plain version (`checked_apply`) and its shape
+    appended to the list."""
     def wrap(fn, name):
         def call(*args, **kw):
             if name not in store:
                 store[name] = ([a.clone() if torch.is_tensor(a) else a
                                 for a in args], kw)
+            if checked is not None and name == "panel_apply_blockfp":
+                checked.append(tuple(args[0].shape))
+                return checked_apply(fn, args, kw)
             return fn(*args, **kw)
         return call
     return wrap
+
+
+def checked_apply(fn, args, kw):
+    """One B4b launch, its first and last matrix held against the plain
+    version on the same inputs: bit-equal or fail."""
+    T, piv, tgt, flip, sig = args
+    ends = [0, T.shape[0] - 1]
+    want = qb.panel_apply_blockfp_reference(T[ends], piv, tgt, flip[ends],
+                                            sig[ends], **kw)
+    out = fn(*args, **kw)
+    compare(f"panel_apply_blockfp at {tuple(T.shape)} ({len(piv)} steps), "
+            f"matrices {ends}, against its plain version", T[ends], want)
+    return out
+
+
+def print_checked(path, checked):
+    """The launches `checked_apply` held against the plain version."""
+    if checked:
+        print(f"{path}: panel_apply_blockfp bit-equal to its plain version "
+              f"on the first and last matrix of each of its {len(checked)} "
+              f"launches ({max(checked)} .. {min(checked)})", flush=True)
 
 
 def check_launches(path, counts, work):
@@ -589,11 +619,61 @@ def add_counts(*counts):
     return {name: sum(c[name] for c in counts) for name in COUNTERS}
 
 
+def launch_work(name, args, lane):
+    """Rotated elements and bytes of one panel-kernel launch on ``args``
+    (as `panel_route_work` counts them)."""
+    B, mr, w = args[0].shape
+    cols = qb._host_table(args[3]) if "factor" in name else None
+    S = len(qb._host_table(args[1]))
+    wb = WORD_BYTES[lane]
+    if cols is None:
+        return B * S * 2 * w, B * (2 * mr * w + 2 * S) * wb
+    return B * sum(2 * (w - c) for c in cols), B * (2 * mr * w + 2 * S) * wb
+
+
+def level_lines(path, lane, launches, repeats):
+    """The panel kernels' time per engine call, in all and summed by tree
+    level (the launch's batch: TSQR's leaves, then its levels; a panel call
+    has one), median over the ``repeats`` calls of ``launches`` ((name,
+    shape, ms, elements, bytes) per launch, call after call), beside each
+    level's bound.  Prints one line per kernel launched."""
+    for name in LANES[lane]:
+        mine = [x for x in launches if x[0] == name]
+        if not mine:
+            continue
+        per_call = len(mine) // repeats
+        levels = {}
+        for i, (_, (B, mr, w), ms, elements, nbytes) in enumerate(mine):
+            lv = levels.setdefault(B, dict(mr=set(), w=set(), ms=[0.0] * repeats,
+                                           n=0, elements=0, bytes=0))
+            lv["ms"][i // per_call] += ms
+            lv["mr"].add(mr)
+            lv["w"].add(w)
+            if i < per_call:
+                lv["n"] += 1
+                lv["elements"] += elements
+                lv["bytes"] += nbytes
+        cells = []
+        for B, lv in sorted(levels.items(), reverse=True):
+            bound_ms = (bfp_bound(True, 24, lv["elements"], lv["bytes"])
+                        if lane == "blockfp" else
+                        _bound(GivensConfig(hub=True, n=26), lv["elements"],
+                               lv["bytes"]))[0]
+            cells.append(f"B {B} (mr {max(lv['mr'])}..{min(lv['mr'])}, w "
+                         f"{max(lv['w'])}..{min(lv['w'])}): {lv['n']} launches "
+                         f"{statistics.median(lv['ms']):.3f} ms, bound "
+                         f"{bound_ms:.3f}")
+        total = statistics.median(map(sum, zip(*(lv["ms"] for lv in levels.values()))))
+        print(f"levels {path} {name}, ms per engine call (median of "
+              f"{repeats}): {total:.3f}; by level: " + "; ".join(cells),
+              flush=True)
+
+
 def tiled_timing(path, eng, A, work, repeats=5, lane="packed"):
     """Each panel kernel's device time per engine call (CUDA events around
     every launch, summed), median of ``repeats`` warm calls; each call's
     launches, counted from its events, must match the route's plan
-    ``work``."""
+    ``work``.  Prints the total, and by tree level (`level_lines`)."""
     events = []
 
     def timed(fn, name):
@@ -603,12 +683,13 @@ def tiled_timing(path, eng, A, work, repeats=5, lane="packed"):
             start.record()
             out = fn(*args, **kw)
             end.record()
-            events.append((name, start, end))
+            events.append((name, start, end, tuple(args[0].shape),
+                           *launch_work(name, args, lane)))
             return out
         return call
 
     totals = {name: [] for name in LANES[lane]}
-    walls = []
+    walls, launches = [], []
     with wrapped_panel_kernels(timed, lane):
         eng(A)                                   # warm
         torch.cuda.synchronize()
@@ -618,23 +699,127 @@ def tiled_timing(path, eng, A, work, repeats=5, lane="packed"):
             _, counts = counted_call(eng, A)
             walls.append(time.perf_counter() - t0)
             check_launches(f"{path}, timed call", counts, work)
-            timed_calls = {name: sum(n == name for n, _, _ in events)
+            timed_calls = {name: sum(ev[0] == name for ev in events)
                            for name in COUNTERS}
             if timed_calls != counts:
                 fail(f"{path}: timed {timed_calls} launches, counted {counts}")
+            launches += [(n, shape, s.elapsed_time(e), *rest)
+                         for n, s, e, shape, *rest in events]
             for name in totals:
                 totals[name].append(sum(s.elapsed_time(e)
-                                        for n, s, e in events if n == name))
+                                        for n, s, e, *_ in events if n == name))
     ms = {name: statistics.median(v) for name, v in totals.items()}
     wall_ms = statistics.median(walls) * 1e3
     print(f"timing {path} at {tuple(A.shape)}: " + ", ".join(
         f"{name} {t:.3f} ms per engine call ({work[name]['steps']} steps"
-        + (" run in step order)" if name == "panel_apply_blockfp"
-           else f" run in {work[name]['stages']} stages)")
+        f" run in {work[name]['stages']} stages)"
         for name, t in ms.items())
         + f"; engine call {wall_ms:.3f} ms host wall (median of {repeats})",
         flush=True)
+    level_lines(path, lane, launches, repeats)
     return ms, wall_ms
+
+
+#: Threads a column the block-FP panel apply B4b is also read at, kernel
+#: only, with ``--block-grid`` (at every launch, whatever its batch).
+APPLY_SLOTS = (1, 2, 4, 8)
+
+#: Clock cycles the card sleeps before a replay, long enough for the host
+#: to queue every launch of a TSQR call behind it (about 0.1 s).
+REPLAY_SLEEP_CYCLES = 200_000_000
+
+
+def strided_copy(T):
+    """A copy of ``T`` with its strides (a row-strided view stays one)."""
+    out = torch.empty_strided(T.size(), T.stride(), dtype=T.dtype,
+                              device=T.device)
+    return out.copy_(T)
+
+
+def capture_launches(eng, A, lane="blockfp"):
+    """(name, args, kw) of every panel-kernel launch of one engine call,
+    each tensor copied before the in-place call."""
+    store = []
+
+    def wrap(fn, name):
+        def call(*args, **kw):
+            store.append((name, [strided_copy(a) if torch.is_tensor(a) else a
+                                 for a in args], kw))
+            return fn(*args, **kw)
+        return call
+
+    with wrapped_panel_kernels(wrap, lane):
+        eng(A)
+    torch.cuda.synchronize()
+    return store
+
+
+def replay_launch(name, T, args, kw, slots):
+    """One captured launch on ``T``: through its wrapper, or with ``slots``
+    B4b at that many threads a column (`qb._panel_apply_blockfp_launch`,
+    one warp of columns a block unless one thread a column)."""
+    if slots is None:
+        return getattr(qb, f"{name}_call")(T, *args[1:], **kw)
+    _, piv, tgt, flip, sig = args
+    table = qb._panel_stage_table((qb._host_table(piv), qb._host_table(tgt)),
+                                  None, T.shape[1], 0, str(T.device))
+    return qb._panel_apply_blockfp_launch(T, table, flip, sig,
+                                          qb._blockfp_args(**kw),
+                                          256 if slots == 1 else 32, slots)
+
+
+def replay(launches, slots):
+    """One pass over captured ``launches`` on fresh copies of their first
+    operands, queued behind a sleep of the card, so that the events around
+    each launch time its kernel alone, without the host's work: the (name,
+    shape, ms, elements, bytes) of each (as `level_lines` takes them) and
+    the outputs."""
+    work = [strided_copy(args[0]) for _, args, _ in launches]
+    torch.cuda._sleep(REPLAY_SLEEP_CYCLES)
+    events = []
+    for T, (name, args, kw) in zip(work, launches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        replay_launch(name, T, args, kw, slots)
+        end.record()
+        events.append((name, tuple(T.shape), start, end,
+                       launch_work(name, args, "blockfp")))
+    torch.cuda.synchronize()
+    return [(name, shape, start.elapsed_time(end), *w)
+            for name, shape, start, end, w in events], work
+
+
+def panel_replay_phase(paths, grid=False, rounds=5):
+    """The block-FP panel kernels B4a and B4b kernel only: every launch of
+    one HUB engine call of each of ``paths`` (label -> a `panel_path` or
+    `tsqr_path` result) captured, then replayed (`replay`) in ``rounds``
+    turns, summed by TSQR level (`level_lines`), beside the same kernels'
+    times in the path (the ``levels`` lines of `tiled_timing`, which hold
+    the host's work inside a launch's events while the card waits for
+    it).  With ``grid`` (``--block-grid``) B4b is also read at each of
+    `APPLY_SLOTS` threads a column, in turns with its wrapper's shape,
+    after holding every launch bit-equal to the wrapper's words."""
+    for label, res in paths.items():
+        launches = capture_launches(res["engine"], res["A"])
+        applies = [x for x in launches if x[0] == "panel_apply_blockfp"]
+        settings = [None] + (list(APPLY_SLOTS) if grid else [])
+        if grid:
+            want = replay(applies, None)[1]
+            for slots in APPLY_SLOTS:
+                for i, (got, w) in enumerate(zip(replay(applies, slots)[1],
+                                                 want)):
+                    compare(f"panel_apply_blockfp {label} launch {i} at "
+                            f"{slots} threads a column", got, w)
+        readings = {slots: [] for slots in settings}
+        for _ in range(rounds):
+            for slots in settings + settings[::-1]:
+                readings[slots] += replay(launches if slots is None else
+                                          applies, slots)[0]
+        for slots in settings:
+            level_lines(f"{label} path, kernel only" + (
+                "" if slots is None else f", {slots} threads a column"),
+                "blockfp", readings[slots], 2 * rounds)
 
 
 def plain_check(captured, cfg):
@@ -976,12 +1161,14 @@ def panel_path(device, lane):
     work = panel_route_work(PANEL_BATCH, PANEL_M, PANEL_M, 2 * PANEL_M,
                             lane=lane)
     captured, results, per_call = {}, {}, {}
-    with wrapped_panel_kernels(capture_first(captured), lane):
+    checked = [] if lane == "blockfp" else None
+    with wrapped_panel_kernels(capture_first(captured, checked), lane):
         t0 = time.perf_counter()
         for name, eng in engines.items():
             results[name], per_call[name] = counted_call(eng, A)
             check_launches(f"{label}panel path {name}", per_call[name], work)
         wall = time.perf_counter() - t0
+    print_checked(f"{label}panel path", checked)
     for name, (Q, R) in results.items():
         if Q.shape != (PANEL_BATCH, PANEL_M, PANEL_M) or R.shape != Q.shape:
             fail(f"{label}panel {name}: shapes {tuple(Q.shape)} {tuple(R.shape)}")
@@ -1001,7 +1188,8 @@ def panel_path(device, lane):
               f"{tuple(R.shape)} bit-equal to the flat route; {text}",
               flush=True)
     print(f"{label}panel path: launches per engine call {per_call}, each as "
-          f"planned; {wall:.3f} s wall (first calls)", flush=True)
+          f"planned; {wall:.3f} s wall (first calls"
+          f"{', B4b plain checks included' if checked else ''})", flush=True)
     flat_ms, flat_shape = flat_kernel_ms(lane, A)
     print(f"flat kernel {spec['flat']} on the same hub batch "
           f"{tuple(flat_shape)}: {flat_ms:.3f} ms (median of 5)", flush=True)
@@ -1021,13 +1209,15 @@ def tsqr_path(device, lane):
     solve_work = tsqr_work(TSQR_BATCH, TSQR_M, TSQR_N + 1, TSQR_TILE_M, False,
                            lane)
     captured = {}
-    with wrapped_panel_kernels(capture_first(captured), lane):
-        t0 = time.perf_counter()
+    checked = [] if lane == "blockfp" else None
+    t0 = time.perf_counter()
+    with wrapped_panel_kernels(capture_first(captured, checked), lane):
         (Q, R), call_counts = counted_call(eng, A)
-        check_launches(f"{label}tsqr path, engine call", call_counts, work)
-        x, solve_counts = counted_call(eng.solve, A, b)
-        check_launches(f"{label}tsqr path, solve", solve_counts, solve_work)
-        wall = time.perf_counter() - t0
+    check_launches(f"{label}tsqr path, engine call", call_counts, work)
+    x, solve_counts = counted_call(eng.solve, A, b)
+    check_launches(f"{label}tsqr path, solve", solve_counts, solve_work)
+    wall = time.perf_counter() - t0
+    print_checked(f"{label}tsqr path", checked)
     if Q.shape != (TSQR_BATCH, TSQR_M, TSQR_N) or R.shape != (TSQR_BATCH, TSQR_N, TSQR_N):
         fail(f"{label}tsqr: shapes {tuple(Q.shape)} {tuple(R.shape)}")
     if not (torch.isfinite(Q).all() and torch.isfinite(R).all()):
@@ -1069,7 +1259,8 @@ def tsqr_path(device, lane):
           flush=True)
     print(f"{label}tsqr path: launches {call_counts} in the engine call and "
           f"{solve_counts} in the solve, each as planned; {wall:.3f} s wall "
-          f"(first calls)", flush=True)
+          f"(first calls{', B4b plain checks included' if checked else ''})",
+          flush=True)
     return dict(counts=add_counts(call_counts, solve_counts),
                 per_call=call_counts, captured=captured, A=A, engine=eng,
                 work=work)
@@ -1860,6 +2051,39 @@ def complex_path(device):
                         for name, o in orders.items()})
 
 
+def wavefront_block_phase(A, grid=False):
+    """B5a at other block shapes (`block_lines`), kernel only on its cached
+    table (`qb._wavefront_table`): on the HUB words [A | I] of the
+    wavefront path at (BATCH, M, 2 M) and, one matrix an SM, tiles in
+    device memory, at (BIG_BATCH, BIG_M, 2 BIG_M): by default at the
+    wrapper's own block shape at the first, and at its `FLAT_THREADS` entry
+    and its widened threads at the second; with ``grid``
+    (``--block-grid``) at `FLAT_BLOCKS` and `FLAT_BIG_THREADS`, the readings
+    that chose the entry."""
+    g = GivensConfig(hub=True, n=26)
+
+    def kernel(A):
+        X, fns = lane_words("packed", A)
+        B, m, e = X.shape
+        table = qb._wavefront_table(qb._stage_key(*stage_tables(m, A.shape[2])),
+                                    m, e, str(X.device))
+        threads = qb._flat_threads("qr_packed_wavefront", table.shape[2], e, B,
+                                   None, str(X.device))
+        return threads, tuple(X.shape), {"B5a": (
+            lambda tb, th: qb._qr_packed_launch(X, table, g, tb, th,
+                                                "qr_packed_wavefront"),
+            fns["wavefront"](X))}, lambda: fns["wavefront"](X)
+
+    threads, shape, main, _ = kernel(A)
+    default, big_shape, big, wrapper = kernel(
+        torch.tensor(big_operand(), device=A.device))
+    blocks, big_threads = (FLAT_BLOCKS, FLAT_BIG_THREADS) if grid else (
+        ((qb.TILE_B, threads),),
+        tuple(sorted({qb.FLAT_THREADS["qr_packed_wavefront"], default})))
+    block_lines(main, shape, big, big_shape, {"B5a": wrapper}, {"B5a": default},
+                blocks, big_threads)
+
+
 def complex_block_phase(P, Pb, cfg, grid=False):
     """B7a at other block shapes (`block_lines`) on the column-major steps
     of the complex path's words [A | I] at (BATCH, M, 2 M, 2) and, one
@@ -2506,8 +2730,10 @@ def rotator_entries(rot):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--block-grid", action="store_true",
-                        help="read B7a at every block shape of FLAT_BLOCKS "
-                             "and FLAT_BIG_THREADS, not only its own")
+                        help="read B5a and B7a at every block shape of "
+                             "FLAT_BLOCKS and FLAT_BIG_THREADS, not only "
+                             "their own, and B4b kernel only at every "
+                             "count of APPLY_SLOTS")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one GPU",
@@ -2566,10 +2792,13 @@ def run(device, block_grid=False):
         "block-FP tsqr path", bfp_tsqr["engine"], bfp_tsqr["A"],
         bfp_tsqr["work"], lane="blockfp")
     bfp_plain = plain_check(bfp_panel["captured"], cfg)
+    panel_replay_phase({"block-FP panel": bfp_panel, "block-FP tsqr": bfp_tsqr},
+                       block_grid)
 
     wavefront_parity_phase(device)
     wave = {lane: wavefront_path(device, lane, A, As, b) for lane in LANES}
     wave_big = wavefront_big_phase(device)
+    wavefront_block_phase(A, block_grid)
     complex_parity_phase(device)
     cplx = complex_path(device)
     complex_block_phase(*cplx["words"], cfg, block_grid)
@@ -2731,7 +2960,9 @@ def run(device, block_grid=False):
         entry = {
             "name": WF_KERNELS[lane],
             "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/wavefront.cu",
+            "source": ("src/repro_torch/kernels/csrc/qr_packed.cu"
+                       if lane == "packed" else
+                       "src/repro_torch/kernels/csrc/wavefront.cu"),
             "replaces": where,
             "replaces_function": function,
             "launches": w["launches"] + (wave_big["launches"]
@@ -2799,15 +3030,19 @@ def run(device, block_grid=False):
                                            M + N_COLS),
                       "solve": steps_stages(givens_schedule(M, N_SOLVE + 1), M,
                                             N_SOLVE + 1)},
-        "qr_packed_complex": cplx["stages"]}
+        "qr_packed_complex": cplx["stages"],
+        "qr_packed_wavefront": {"path": (len(flat_order(M, N_COLS)),
+                                         len(sameh_kuck_schedule(M, N_COLS)))}}
     for name, panel_work, tsqr_work_ in (
             ("panel_factor_packed", panel["work"], tsqr["work"]),
-            ("panel_factor_blockfp", bfp_panel["work"], bfp_tsqr["work"])):
+            ("panel_factor_blockfp", bfp_panel["work"], bfp_tsqr["work"]),
+            ("panel_apply_blockfp", bfp_panel["work"], bfp_tsqr["work"])):
         stages[name] = {path: (w[name]["steps"], w[name]["stages"])
                         for path, w in (("panel", panel_work),
                                         ("tsqr", tsqr_work_))}
     labels = {"qr_packed": "B1", "qr_packed_complex": "B7a",
-              "panel_factor_packed": "B3a", "panel_factor_blockfp": "B4a"}
+              "qr_packed_wavefront": "B5a", "panel_factor_packed": "B3a",
+              "panel_factor_blockfp": "B4a", "panel_apply_blockfp": "B4b"}
     print("steps -> stages per engine call: " + "; ".join(
         f"{name} ({labels[name]}) " + ", ".join(
             f"{path} {st} -> {sg}" for path, (st, sg) in by_path.items())

@@ -43,17 +43,19 @@ SIGNATURES = {
     "panel_factor_blockfp_launch": ([C_PTR, C_LL, C_LL] + [C_INT] * 3
                                     + [C_PTR] + [C_INT] * 3 + [C_PTR] * 2
                                     + [C_INT] * 5 + [C_PTR]),
-    "panel_apply_blockfp_launch": ([C_PTR, C_LL, C_LL] + [C_INT] * 2
-                                   + [C_PTR] * 2 + [C_INT] + [C_PTR] * 2
-                                   + [C_INT] * 4 + [C_PTR]),
+    # (P, sb, ld, B, mr, w, stage table, stages, pairs, S, flip, sig, cols,
+    #  slot threads, window, ...)
+    "panel_apply_blockfp_launch": ([C_PTR, C_LL, C_LL] + [C_INT] * 3
+                                   + [C_PTR] + [C_INT] * 3 + [C_PTR] * 2
+                                   + [C_INT] * 6 + [C_PTR]),
     # (in, out, tables, B, m, e, S, P, tile_b, threads_x[, device_tile])
-    "qr_packed_wavefront_launch": [C_PTR] * 3 + [C_INT] * 8 + UNIT_ARGTYPES,
     "qr_blockfp_wavefront_launch": [C_PTR] * 3 + [C_INT] * 10 + [C_PTR],
     # (in, out, stage table, B, m, e, S, P, tile_b, threads_x, device_tile)
     "qr_packed_complex_launch": [C_PTR] * 3 + [C_INT] * 8 + UNIT_ARGTYPES,
     "qr_packed_complex_wavefront_launch": ([C_PTR] * 3 + [C_INT] * 8
                                            + UNIT_ARGTYPES),
-    # the lanes: as qr_packed_launch and qr_packed_wavefront_launch
+    # the lanes: (in, out, steps | stage table, B, m, e, S[, P], tile_b,
+    #  threads_x, device_tile, ...)
     "qr_packed_lanes_launch": [C_PTR] * 3 + [C_INT] * 7 + LANE_ARGTYPES,
     "qr_packed_lanes_wavefront_launch": ([C_PTR] * 3 + [C_INT] * 8
                                          + LANE_ARGTYPES),

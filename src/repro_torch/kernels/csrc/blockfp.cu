@@ -25,7 +25,8 @@
 //    at uniform width and restores the lanes left of the lead; here those
 //    lanes are simply not touched.
 //  * panel_apply_blockfp: every (piv, tgt, flip, sigma) step replayed on
-//    the trailing mr x w region.  Equal to panel_apply_blockfp_reference.
+//    the trailing mr x w region, in the same stages as the factor (the
+//    words are the step order's).  Equal to panel_apply_blockfp_reference.
 // Panel by panel the last two run the flat kernel's column-major steps in
 // the same order, so their words equal its words.
 //
@@ -58,9 +59,22 @@
 //    memory; the wrapper caps tile_b.
 //  * panel_factor_blockfp and panel_apply_blockfp work in place on
 //    row-strided views of the (B, m, e) working buffer (batch stride sb,
-//    row stride ld, unit column stride), as panel_packed.cu does.  The
-//    apply gives one thread one column of one matrix for all S steps, with
-//    no barrier.
+//    row stride ld, unit column stride), as panel_packed.cu does.
+//  * panel_apply_blockfp runs the factor's (4, S', P) stage table (11168
+//    steps -> 1648 stages a TSQR call).  A block holds up to 256 trailing
+//    columns of one matrix in shared memory, read once and written once,
+//    and stages each live pair's rows and (flip, sigma) there (8 B a pair)
+//    with each stage's count of them, in windows of the stages that fit
+//    beside the columns (all of them at once on the TSQR and panel paths;
+//    a tall or wide panel takes several windows, two barriers each).  By
+//    default one thread owns one column and replays each stage's live
+//    pairs on it, 8, 4, 2 and 1 at a time: the pairs' rows are disjoint,
+//    so the chains are independent and interleave, which hides the
+//    micro-rotations' latency, and the stage loop has no barrier.  A column's dependent chain is S'
+//    stages, not S steps.  For a grid too small to fill the card the
+//    wrapper spreads a stage's pairs over 2-8 threads of a column
+//    (blockDim.y), with one barrier a stage, and one warp of columns a
+//    block.
 #include <cuda_runtime.h>
 
 #include "blockfp_unit.cuh"
@@ -124,26 +138,159 @@ __global__ void panel_factor_blockfp_kernel(i32* P, long long sb, long long ld,
   if (live) bfp::copy_tile(src, ld, T, pw, mr, pw);
 }
 
-__global__ void panel_apply_blockfp_kernel(i32* P, long long sb, long long ld,
-                                           int w, const int* __restrict__ piv,
-                                           const int* __restrict__ tgt, int S,
-                                           const i32* __restrict__ flip,
-                                           const i32* __restrict__ sig,
-                                           Params u) {
-  const long long b = blockIdx.x;
-  const int c = blockIdx.y * blockDim.x + threadIdx.x;
-  if (c >= w) return;
-  i32* T = P + b * sb + c;
-  const i32* f = flip + b * S;
-  const i32* g = sig + b * S;
-  for (int s = 0; s < S; ++s) {
-    i32* px = T + __ldg(piv + s) * ld;
-    i32* py = T + __ldg(tgt + s) * ld;
-    i32 x = *px, y = *py;
-    bfp::replay(x, y, u, __ldg(f + s), __ldg(g + s));
-    *px = x;
-    *py = y;
+// B4b's control table in shared memory: one record a pair of a stage.  x
+// holds the pair's rows (pivot | target << 16), y its control word (sigma
+// | flip << 31: sigma has at most 30 bits, the wrappers refuse iters > 30).
+__device__ __forceinline__ int2 apply_record(const wf::Tables& t, long long o,
+                                             const i32* f, const i32* g) {
+  const int st = __ldg(t.tab + 3 * t.ts + o);
+  const bfp::u32 word = ((bfp::u32)__ldg(g + st) & 0x3FFFFFFFu) |
+                        (bfp::u32)(__ldg(f + st) != 0) << 31;
+  return make_int2(__ldg(t.tab + o) | __ldg(t.tab + t.ts + o) << 16, (int)word);
+}
+
+// microrotation() with the direction as a mask m (all ones where d_pos)
+// and its bit d = -m, without a select: x - ys - cy = x + ~ys + (1 - cy)
+// and x + ys + cy are x + (ys ^ m) + (cy ^ d), in wrapping arithmetic, and
+// the y update is the same with ~m; conventional: cy = cx = 0.  ys2 and
+// xs2 are y and x shifted by i - 1, whose low bit is the HUB carry (HUB
+// micro-rotation 0, whose carries are 1, passes ~0).
+template <bool kHub>
+__device__ __forceinline__ void microrotation_mask(i32& x, i32& y, i32 ys,
+                                                   i32 xs, i32 ys2, i32 xs2,
+                                                   i32 m) {
+  const i32 d = m & 1;
+  const i32 cy = kHub ? (ys2 ^ d) & 1 : d;
+  const i32 cx = kHub ? (xs2 ^ d ^ 1) & 1 : d ^ 1;
+  x = bfp::wrap_add(bfp::wrap_add(x, ys ^ m), cy);
+  y = bfp::wrap_add(bfp::wrap_add(y, xs ^ ~m), cx);
+}
+
+// K pairs of one stage replayed on one column (rows r at col[r * C]): the
+// pairs' rows are disjoint, so the K chains are independent and the
+// compiler interleaves their micro-rotations.  rec steps by `stride`.
+template <bool kHub, int K>
+__device__ __forceinline__ void replay_pairs(i32* col, int C, const int2* rec,
+                                             int stride, const Params& u) {
+  i32 x[K], y[K], g[K];
+  int kr[K], jr[K];
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    const int2 r = rec[q * stride];
+    kr[q] = (r.x & 0xFFFF) * C;
+    jr[q] = (r.x >> 16) * C;
+    g[q] = r.y;
+    const bool flip = r.y < 0;
+    x[q] = flip ? bfp::negate(col[kr[q]], kHub) : col[kr[q]];
+    y[q] = flip ? bfp::negate(col[jr[q]], kHub) : col[jr[q]];
   }
+  if (u.iters > 0) {  // micro-rotation 0: shift 0, HUB carries 1
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      microrotation_mask<kHub>(x[q], y[q], y[q], x[q], ~0, ~0,
+                               -(g[q] & 1));
+    }
+  }
+  for (int i = 1; i < u.iters; ++i) {
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      microrotation_mask<kHub>(x[q], y[q], y[q] >> i, x[q] >> i,
+                               y[q] >> (i - 1), x[q] >> (i - 1),
+                               -((g[q] >> i) & 1));
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    col[kr[q]] = bfp::gain_mul_q30(x[q], u.comp);
+    col[jr[q]] = bfp::gain_mul_q30(y[q], u.comp);
+  }
+}
+
+// B4b: a block holds C = blockDim.x trailing columns of one matrix in
+// shared memory ([row][column]: a warp's lanes on consecutive words), and
+// the records of a window of `window` stages' live pairs with each
+// stage's count of them.  kWindows: the records are loaded window by
+// window, between two barriers; else all S' stages fit one window, loaded
+// once, and the stage loop runs once (a stage loop nested in a window
+// loop read 3-5% slower on an H100 where one window holds all stages).
+// Thread (x, gs) replays a stage's pairs gs, gs + G, ... on column x
+// (G = blockDim.y), 8 at a time, then the rest 4, 2, 1 at a time: no
+// padded pair is replayed.  With G = 1 a column's pairs are all one
+// thread's and the stage loop has no barrier, else one barrier a stage.
+template <bool kHub, bool kWindows>
+__global__ void __launch_bounds__(256)
+    panel_apply_blockfp_kernel(i32* P, long long sb, long long ld, int mr,
+                               int w, wf::Tables t, int window, int S,
+                               const i32* __restrict__ flip,
+                               const i32* __restrict__ sig, Params u) {
+  extern __shared__ int2 apply_smem[];
+  const int C = blockDim.x, G = blockDim.y;
+  const int x = threadIdx.x, gs = threadIdx.y;
+  const int tid = gs * C + x;
+  const int c0 = blockIdx.y * C;
+  const bool live = x < w - c0;  // the ragged edge of the last column block
+  const long long b = blockIdx.x;
+  int2* rec = apply_smem;                          // (window, P) records
+  int* count = (int*)(rec + (long long)window * t.P);  // live pairs a stage
+  i32* col = (i32*)(count + window) + x;   // mr x C, row r at col[r * C]
+  i32* src = P + b * sb + c0 + x;
+  if (live) {
+    for (int r = gs; r < mr; r += G) col[r * C] = src[r * ld];
+  }
+  for (int s0 = 0; s0 < t.S; s0 += window) {
+    const int ns = kWindows ? min(window, t.S - s0) : t.S;
+    if (kWindows && s0 > 0) __syncthreads();  // the last window's records read
+    for (int i = tid; i < ns * t.P; i += C * G) {
+      const long long o = (long long)s0 * t.P + i;
+      if (__ldg(t.tab + o) < mr) rec[i] = apply_record(t, o, flip + b * S,
+                                                       sig + b * S);
+    }
+    for (int s = tid; s < ns; s += C * G) {  // a stage's live pairs lead it
+      const int* piv = t.tab + (long long)(s0 + s) * t.ss;
+      int n = 0;
+      while (n < t.P && __ldg(piv + n) < mr) ++n;
+      count[s] = n;
+    }
+    __syncthreads();
+    for (int s = 0; s < ns; ++s) {
+      if (live) {
+        const int2* r = rec + (long long)s * t.P + gs;
+        int n = (count[s] - gs + G - 1) / G;  // this thread's pairs
+        for (; n >= 8; n -= 8, r += 8 * G) {
+          replay_pairs<kHub, 8>(col, C, r, G, u);
+        }
+        if (n & 4) {
+          replay_pairs<kHub, 4>(col, C, r, G, u);
+          r += 4 * G;
+        }
+        if (n & 2) {
+          replay_pairs<kHub, 2>(col, C, r, G, u);
+          r += 2 * G;
+        }
+        if (n & 1) replay_pairs<kHub, 1>(col, C, r, G, u);
+      }
+      if (G > 1) __syncthreads();  // the stage's rows written before the next reads
+    }
+    if (!kWindows) break;
+  }
+  if (live) {
+    for (int r = gs; r < mr; r += G) src[r * ld] = col[r * C];
+  }
+}
+
+template <bool kHub, bool kWindows>
+static int apply_launch(dim3 grid, dim3 block, size_t smem,
+                        cudaStream_t stream, i32* P, long long sb,
+                        long long ld, int mr, int w, const wf::Tables& t,
+                        int window, int S, const i32* flip, const i32* sig,
+                        const Params& u) {
+  cudaError_t err = cudaFuncSetAttribute(
+      panel_apply_blockfp_kernel<kHub, kWindows>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  panel_apply_blockfp_kernel<kHub, kWindows><<<grid, block, smem, stream>>>(
+      P, sb, ld, mr, w, t, window, S, flip, sig, u);
+  return (int)cudaGetLastError();
 }
 
 extern "C" {
@@ -188,15 +335,25 @@ int panel_factor_blockfp_launch(void* P, long long sb, long long ld, int B,
 }
 
 int panel_apply_blockfp_launch(void* P, long long sb, long long ld, int B,
-                               int w, const void* piv, const void* tgt, int S,
-                               const void* flip, const void* sig, int threads,
-                               int iters, int hub, int comp, void* stream) {
+                               int mr, int w, const void* tables, int stages,
+                               int pairs, int S, const void* flip,
+                               const void* sig, int cols, int slot_threads,
+                               int window, int iters, int hub, int comp,
+                               void* stream) {
   const Params u = {iters, hub, comp};
-  const dim3 grid(B, (w + threads - 1) / threads);
-  panel_apply_blockfp_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (i32*)P, sb, ld, w, (const int*)piv, (const int*)tgt, S,
-      (const i32*)flip, (const i32*)sig, u);
-  return (int)cudaGetLastError();
+  const wf::Tables t = {(const int*)tables, (long long)stages * pairs, pairs,
+                        stages, pairs};
+  const dim3 grid(B, (w + cols - 1) / cols);
+  const dim3 block(cols, slot_threads);
+  const size_t smem = (size_t)window * pairs * sizeof(int2) +
+                      (size_t)window * sizeof(int) +
+                      (size_t)mr * cols * sizeof(i32);
+  const bool windows = window < stages;
+  return (hub ? (windows ? apply_launch<true, true> : apply_launch<true, false>)
+              : (windows ? apply_launch<false, true>
+                         : apply_launch<false, false>))(
+      grid, block, smem, (cudaStream_t)stream, (i32*)P, sb, ld, mr, w, t,
+      window, S, (const i32*)flip, (const i32*)sig, u);
 }
 
 const char* blockfp_error_string(int err) {

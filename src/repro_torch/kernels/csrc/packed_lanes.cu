@@ -16,8 +16,8 @@
 // (on the lead it gives the vectoring result), and the target lead is
 // forced to 0 on both lanes.  The output words equal the plain versions'
 // (qr_packed_lanes_reference, qr_packed_lanes_wavefront_reference), and
-// through lanes_to_packed those of qr_packed.cu and wavefront.cu on the
-// same words.
+// through lanes_to_packed those of qr_packed.cu (B1 and B5a) on the same
+// words.
 //
 // Bound on this card: integer operations, as for qr_packed.cu: the same
 // elements are rotated at the same shapes, so the bound is B1's (B5a's

@@ -1,7 +1,11 @@
 // Kernel-resident Givens QR over packed FP words, bit-exact to the unit.
 //
 // Replaces: src/repro/kernels/qrd_blocked.py, _qr_packed_kernel /
-// qr_packed_call (the pallas_call of the step-serial packed-word QR).
+// qr_packed_call (the pallas_call of the step-serial packed-word QR, B1),
+// and _qr_packed_wavefront_kernel / qr_packed_wavefront_call (B5a): the
+// Sameh-Kuck stages are disjoint pairs already, so B5a's wrapper gives
+// this kernel the caller's stages with their item ends
+// (qrd_blocked._wavefront_table) and counts its own launches.
 //
 // What it computes: for each (k, j, col) step of a schedule, the unit's
 // rotate_rows on rows k and j from column col (input converter, CORDIC
@@ -15,7 +19,8 @@
 // meets its steps in their order, and the words are the step order's bit
 // for bit.  Any schedule works: column-major (496 steps -> 61 stages at
 // 32 x 32 with Q), the solve augmentation (391 -> 47), a flattened
-// Sameh-Kuck order (as many stages as its own).
+// Sameh-Kuck order (as many stages as its own), or B5a's Sameh-Kuck stages
+// as the caller gives them.
 //
 // Bound on this card: integer operations.  The tile is read once and
 // written once (0.08 ms of bytes at (8192, 32, 64) at 3.35 TB/s) against

@@ -1,6 +1,6 @@
 // The tile copy of the packed-word kernels that hold a matrix's tile in
 // shared memory or work on it in place in device memory (qr_packed.cu,
-// panel_packed.cu, wavefront.cu, complex_packed.cu).
+// panel_packed.cu, complex_packed.cu).
 #pragma once
 
 #include "givens_unit.cuh"

@@ -1,11 +1,11 @@
-// Sameh-Kuck wavefront QR on one resident tile per matrix: every pair of a
-// stage rotated at once, on packed FP words (bit-exact to the unit) and on
-// int32 block-FP significands.
+// Sameh-Kuck wavefront QR on int32 block-FP significands, one resident
+// tile per matrix: every pair of a stage rotated at once.  (B5a, its packed
+// twin, runs on qr_packed.cu's kernel since the stages carry their item
+// ends; see qrd_blocked.qr_packed_wavefront_call.)
 //
 // Replaces: src/repro/kernels/qrd_blocked.py,
-//   _qr_packed_wavefront_kernel / qr_packed_wavefront_call (B5a) and
 //   _qr_blockfp_wavefront_kernel / qr_blockfp_wavefront_call (B5b), the
-//   lax.scan over stages of _wavefront_scan; B5b's body is
+//   lax.scan over stages of _wavefront_scan; its body is
 //   cordic_givens.fused_rotate_pairs.
 //
 // What it computes: for each stage of (S, P) pivot, target and column
@@ -13,53 +13,28 @@
 // column on: vectoring on the lead pair gives the control word (flip,
 // sigma), which is replayed on every element of both rows (on the lead it
 // gives the vectoring result), and the target lead is forced to 0.  Equal
-// to qr_packed_wavefront_reference / qr_blockfp_wavefront_reference, and so
-// to qr_packed / qr_blockfp on the flattened stage schedule: the pairs of a
-// stage touch disjoint rows, and each pair's words are those of its step.
+// to qr_blockfp_wavefront_reference, and so to qr_blockfp on the flattened
+// stage schedule: the pairs of a stage touch disjoint rows, and each
+// pair's words are those of its step.
 //
-// Bound on this card: integer operations, as for qr_packed.cu and
-// blockfp.cu: the same elements are rotated as on the flat kernels at the
-// same shape, so the bound is theirs.  Its sequential depth is theirs too:
-// 61 stages at 32 x 32, which the flat kernels reach by levelizing the
-// 496 column-major steps.
+// Bound on this card: integer operations, as for blockfp.cu: the same
+// elements are rotated as on the flat kernel at the same shape, so the
+// bound is its.  Its sequential depth is its too: 61 stages at 32 x 32,
+// which the flat kernel reaches by levelizing the 496 column-major steps.
 //
 // Design (simple first; speed is later work):
 //  * One block holds `tile_b` matrices (blockDim.y); the stage loop is
-//    wf::run_stages (stage_loop.cuh) on the pair steps of stage_bodies.cuh,
-//    shared with the flat kernels: one thread per pair computes the
-//    pair's control word into shared memory, then the block's threads
-//    spread over (pair, column) and replay it; two barriers a stage.
-//  * Packed: the m x e int64 tile lives in dynamic shared memory, or, when
-//    the block's tiles do not fit (128 x 256 with Q is 256 KiB), in place
-//    in device memory (`in` copied to `out` once, kShared = false), as in
-//    qr_packed.cu.  Block-FP: the int32 tile always fits (at most 128 KiB).
+//    wf::run_stages (stage_loop.cuh) on the pair step of stage_bodies.cuh,
+//    shared with the flat kernel: one thread per pair computes the pair's
+//    control word into shared memory, then the block's threads spread over
+//    (pair, column) and replay it; two barriers a stage.
+//  * The int32 tile lives in dynamic shared memory (at most 128 KiB).
 #include <cuda_runtime.h>
 
-#include "qr_tile.cuh"
 #include "stage_bodies.cuh"
 #include "stage_loop.cuh"
 
-using gru::i64;
-using gru::UnitParams;
 using bfp::i32;
-
-template <bool kShared>
-__global__ void qr_packed_wavefront_kernel(const i64* __restrict__ in, i64* out,
-                                           wf::Tables t, int B, int m, int e,
-                                           UnitParams u) {
-  extern __shared__ i64 wf_smem64[];
-  const long long me = (long long)m * e;
-  const long long b = (long long)blockIdx.x * blockDim.y + threadIdx.y;
-  const bool live = b < B;  // the ragged edge of the last block
-  i64* tiles = wf_smem64;
-  i64* ctrl = wf_smem64 + (kShared ? (long long)blockDim.y * me : 0) +
-              (long long)threadIdx.y * t.P * 2;
-  i64* T = kShared ? tiles + threadIdx.y * me : out + (live ? b : 0) * me;
-  if (live) gru::copy_tile(T, e, in + b * me, e, m, e);
-  __syncthreads();
-  wf::run_stages(t, m, e, live, wf::PackedStage{T, e, &u, ctrl});
-  if (kShared && live) gru::copy_tile(out + b * me, e, T, e, m, e);
-}
 
 __global__ void qr_blockfp_wavefront_kernel(const i32* __restrict__ in,
                                             i32* out, wf::Tables t, int B,
@@ -79,43 +54,8 @@ __global__ void qr_blockfp_wavefront_kernel(const i32* __restrict__ in,
 
 extern "C" {
 
-// Each launches on `stream` and returns the CUDA error of the launch (0 on
-// success).  `tables` is the (3, S, P) int32 stage table.  With
-// device_tile the packed working tiles live in `out` (device memory).
-int qr_packed_wavefront_launch(const void* in, void* out, const void* tables,
-                               int B, int m, int e, int S, int P, int tile_b,
-                               int threads_x, int device_tile, int man_bits,
-                               int exp_bits, long long bias,
-                               long long max_exp_raw, int N, int iters,
-                               int hub, int rne, int unbiased,
-                               int detect_identity, long long comp, int p,
-                               void* stream) {
-  const UnitParams u = {man_bits, exp_bits, bias, max_exp_raw, N, iters, hub,
-                        rne, unbiased, detect_identity, comp, p};
-  const wf::Tables t = {(const int*)tables, (long long)S * P, P, S, P};
-  const dim3 block(threads_x, tile_b);
-  const dim3 grid((B + tile_b - 1) / tile_b);
-  const size_t ctrl = (size_t)tile_b * P * 2 * sizeof(i64);
-  if (device_tile) {
-    cudaError_t err = cudaFuncSetAttribute(
-        qr_packed_wavefront_kernel<false>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ctrl);
-    if (err != cudaSuccess) return (int)err;
-    qr_packed_wavefront_kernel<false><<<grid, block, ctrl,
-                                        (cudaStream_t)stream>>>(
-        (const i64*)in, (i64*)out, t, B, m, e, u);
-    return (int)cudaGetLastError();
-  }
-  const size_t smem = (size_t)tile_b * m * e * sizeof(i64) + ctrl;
-  cudaError_t err = cudaFuncSetAttribute(
-      qr_packed_wavefront_kernel<true>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  qr_packed_wavefront_kernel<true><<<grid, block, smem, (cudaStream_t)stream>>>(
-      (const i64*)in, (i64*)out, t, B, m, e, u);
-  return (int)cudaGetLastError();
-}
-
+// Launches on `stream` and returns the CUDA error of the launch (0 on
+// success).  `tables` is the (3, S, P) int32 stage table.
 int qr_blockfp_wavefront_launch(const void* in, void* out, const void* tables,
                                 int B, int m, int e, int S, int P, int tile_b,
                                 int threads_x, int iters, int hub, int comp,

@@ -19,14 +19,15 @@ wrappers, launch counters and plain PyTorch versions.
   `panel_apply_blockfp_call` (``csrc/blockfp.cu``) replace their namesakes
   of the JAX package on the int32 block-FP datapath: the same three jobs on
   int32 significands with one shared exponent per (matrix, column) (the
-  flat one in the stages of `flat_stage_table`, the panel factor in those
-  of `levelize_steps`),
+  flat one in the stages of `flat_stage_table`, the panel factor and
+  apply in those of `levelize_steps`),
   bit-identical to `qr_blockfp_reference`,
   `panel_factor_blockfp_reference` and `panel_apply_blockfp_reference`,
   loops of `repro_torch.kernels.cordic_givens.fused_rotate_block`,
   `fused_rotate_ctrl` and `fused_replay`.
-* `qr_packed_wavefront_call` and `qr_blockfp_wavefront_call`
-  (``csrc/wavefront.cu``) replace their namesakes of the JAX package: the
+* `qr_packed_wavefront_call` (B1's kernel, ``csrc/qr_packed.cu``, on the
+  caller's stages) and `qr_blockfp_wavefront_call` (``csrc/wavefront.cu``)
+  replace their namesakes of the JAX package: the
   Sameh–Kuck wavefront, every pair of a stage rotated at once (their row
   pairs are disjoint), on packed words and on int32 block-FP significands.
   The schedule travels as (S, Pmax) stage tables padded with row ``m``
@@ -92,8 +93,8 @@ __all__ = ["qr_packed_call", "qr_packed_reference", "QR_PACKED_LAUNCHES",
            "qr_packed_lanes_wavefront_reference",
            "QR_PACKED_LANES_WAVEFRONT_LAUNCHES", "TABLE_LAYOUTS",
            "TILE_B", "FLAT_THREADS", "FLAT_MAX_THREADS", "PANEL_TILE_B",
-           "MAX_SHARED_BYTES", "kernel_params", "levelize_steps",
-           "flat_stage_table"]
+           "MAX_SHARED_BYTES", "kernel_params",
+           "levelize_steps", "flat_stage_table"]
 
 #: Matrices per CUDA block when the caller gives no ``tile_b``.  For the
 #: flat kernels B1 and B2 at (8192, 32, 64) on an H100, tile_b 2 and 4 at
@@ -105,8 +106,10 @@ TILE_B = 1
 #: Threads per matrix of the flat kernels' stage loop at a batch that
 #: fills the card, by kernel: of 32 to 256 at tile_b 1, the fastest at the
 #: flat route's (8192, 32, 64) on an H100 (`_flat_threads`); the complex
-#: kernel's at (8192, 32, 64, 2).
-FLAT_THREADS = {"qr_packed": 128, "qr_blockfp": 32, "qr_packed_complex": 256}
+#: kernel's at (8192, 32, 64, 2); B5a's (B1's kernel on the Sameh–Kuck
+#: stages) at the wavefront path's (8192, 32, 64).
+FLAT_THREADS = {"qr_packed": 128, "qr_blockfp": 32, "qr_packed_complex": 256,
+                "qr_packed_wavefront": 128}
 
 #: The most threads per matrix `_flat_threads` widens a small batch's
 #: blocks to: of 256, 512 and 1024, the fastest for B1 and B2 at
@@ -291,10 +294,18 @@ def flat_stage_table(steps, m: int, e: int) -> np.ndarray:
     steps = tuple(tuple(int(v) for v in s) for s in steps)
     _check_steps(steps, m, e)
     piv, tgt, col = (tuple(s[i] for s in steps) for i in range(3))
-    tab = levelize_steps(piv, tgt, col, m).copy()
-    tab[3] = np.cumsum(np.where(tab[0] < m, e - tab[2], 0), axis=1)
-    tab.setflags(write=False)
-    return tab
+    return _with_item_ends(levelize_steps(piv, tgt, col, m)[:3], m, e)
+
+
+def _with_item_ends(tab, m: int, e: int) -> np.ndarray:
+    """A read-only (4, S, P) int32 copy of the (3, S, P) stage tables
+    ``tab`` with row 3 each pair's inclusive end among its stage's live
+    (pair, column) items: the cumsum of ``e - col`` over the stage's
+    pairs, a padded pair (pivot row m) adding none."""
+    item_end = np.cumsum(np.where(tab[0] < m, e - tab[2], 0), axis=1)
+    out = np.concatenate([tab, item_end[None]]).astype(np.int32)
+    out.setflags(write=False)
+    return out
 
 
 @lru_cache(maxsize=SCHEDULE_CACHE_SIZE)
@@ -315,7 +326,8 @@ def _card_threads(device: str) -> int:
 def _flat_threads(kernel: str, pairs: int, e: int, B: int, tile_b,
                   device: str) -> int:
     """Threads per matrix of the flat kernel ``kernel`` ('qr_packed',
-    'qr_blockfp' or 'qr_packed_complex'): its `FLAT_THREADS`, doubled while the grid's threads
+    'qr_blockfp', 'qr_packed_complex' or B5a's 'qr_packed_wavefront'): its
+    `FLAT_THREADS`, doubled while the grid's threads
     still fit the card at once (`_card_threads`) — a batch too small to
     fill the card spreads each matrix over more threads rather than leave
     SMs idle — up to `FLAT_MAX_THREADS`, and at most one per (pair, column)
@@ -353,15 +365,6 @@ def _check_panel_steps(rows, cols, mr: int, pw: int):
                 cols is not None and not 0 <= cols[s] < pw):
             raise ValueError(f"panel step {s} ({k}, {j}) is out of range for "
                              f"a panel of {mr} x {pw}")
-
-
-@lru_cache(maxsize=SCHEDULE_CACHE_SIZE)
-def _panel_tables(rows, cols, mr: int, pw: int, device: str):
-    """Validated device copies of panel-local step tables (the block-FP
-    panel kernels take them in step order)."""
-    _check_panel_steps(rows, cols, mr, pw)
-    return tuple(torch.tensor(t, dtype=torch.int32, device=device)
-                 for t in rows + ((cols,) if cols is not None else ()))
 
 
 def levelize_steps(piv, tgt, col, m: int):
@@ -409,12 +412,26 @@ def levelize_steps(piv, tgt, col, m: int):
 
 
 @lru_cache(maxsize=SCHEDULE_CACHE_SIZE)
+def _panel_levels(rows, mr: int):
+    """`levelize_steps` of the validated panel-local row tables ``rows`` (a
+    tuple of (S,) tables) on ``mr`` rows, lead columns 0: the stages a
+    panel's factor and apply share (the levels depend on the rows only)."""
+    _check_panel_steps(rows, None, mr, 0)
+    return levelize_steps(*rows, None, mr)
+
+
+@lru_cache(maxsize=SCHEDULE_CACHE_SIZE)
 def _panel_stage_table(rows, cols, mr: int, pw: int, device: str):
-    """Validated (4, S', P) int32 device copy of the levelized panel-local
-    step tables (`levelize_steps`): rows is a tuple of (S,) row tables,
-    cols the column table or None."""
-    _check_panel_steps(rows, cols, mr, pw)
-    return torch.tensor(levelize_steps(*rows, cols, mr), device=device)
+    """(4, S', P) int32 device copy of `_panel_levels` with, where ``cols``
+    (the (S,) column table, validated against ``pw``) is given, each
+    pair's lead column in row 2; None leaves it 0, for the applies."""
+    table = _panel_levels(rows, mr)
+    if cols is not None:
+        _check_panel_steps(rows, cols, mr, pw)
+        table = table.copy()
+        table[2] = np.where(table[3] >= 0,
+                            np.asarray(cols, np.int32)[table[3]], 0)
+    return torch.tensor(table, device=device)
 
 
 def qr_packed_call(P, *, cfg: GivensConfig, steps, tile_b: int | None = None):
@@ -449,8 +466,6 @@ def qr_packed_call(P, *, cfg: GivensConfig, steps, tile_b: int | None = None):
     steps = tuple(map(tuple, steps))
     if _check_operand("qr_packed_call", P):
         return qr_packed_reference(P, cfg=cfg, steps=steps)
-    if not P.is_contiguous():
-        raise ValueError("qr_packed_call: expected a contiguous tensor")
     B, m, e = P.shape
     table = _flat_stage_table(steps, m, e, str(P.device))
     threads_x = _flat_threads("qr_packed", table.shape[2], e, B, tile_b,
@@ -458,13 +473,19 @@ def qr_packed_call(P, *, cfg: GivensConfig, steps, tile_b: int | None = None):
     return _qr_packed_launch(P, table, cfg, tile_b, threads_x)
 
 
-def _qr_packed_launch(P, table, cfg: GivensConfig, tile_b, threads_x: int):
-    """B1 on a CUDA tensor: the stages of ``table`` (`_flat_stage_table`)
-    with ``threads_x`` threads a matrix and ``tile_b`` matrices a block."""
-    global QR_PACKED_LAUNCHES
+def _qr_packed_launch(P, table, cfg: GivensConfig, tile_b, threads_x: int,
+                      kernel: str = "qr_packed"):
+    """B1's kernel on a CUDA tensor: the stages of ``table`` (with each
+    pair's item end, `_flat_stage_table`) with ``threads_x`` threads a
+    matrix and ``tile_b`` matrices a block.  ``kernel`` is the wrapper the
+    launch counts for: 'qr_packed' (B1) or 'qr_packed_wavefront' (B5a, on
+    `_wavefront_table`)."""
+    fn = f"{kernel}_call"
+    if not P.is_contiguous():
+        raise ValueError(f"{fn}: expected a contiguous tensor")
     B, m, e = P.shape
     stages, pairs = table.shape[1:]
-    tile_b = _block_shape("qr_packed_call", tile_b, threads_x)
+    tile_b = _block_shape(fn, tile_b, threads_x)
     device_tile = tile_b * (m * e + 2 * pairs) * 8 > MAX_SHARED_BYTES
     out = torch.empty_like(P)
     if B == 0:
@@ -474,7 +495,7 @@ def _qr_packed_launch(P, table, cfg: GivensConfig, tile_b, threads_x: int):
         pairs, tile_b, threads_x, int(device_tile),
         *_unit_args(cfg), _stream(P))
     _check_launch("qr_packed", err)
-    QR_PACKED_LAUNCHES += 1
+    globals()[f"{kernel.upper()}_LAUNCHES"] += 1
     return out
 
 
@@ -784,6 +805,18 @@ def panel_factor_blockfp_call(X, piv, tgt, col, *, iters: int, hub: bool,
     return X, flip, sig
 
 
+def _apply_slot_threads(w: int, pairs: int, B: int, device: str):
+    """Threads a column's stage is spread over in the block-FP panel apply
+    B4b: 1 where the grid's B x w threads fill an eighth of what the card
+    holds (`_card_threads`); a smaller grid doubles them, up to 8 and to
+    the stage's pairs, while its threads stay within that eighth."""
+    slot_threads = 1
+    while (slot_threads < min(pairs, 8)
+           and 8 * B * w * slot_threads <= _card_threads(device)):
+        slot_threads *= 2
+    return slot_threads
+
+
 def panel_apply_blockfp_call(T, piv, tgt, flip, sig, *, iters: int,
                              hub: bool):
     """Replay a panel's int32 control words over the trailing block-FP
@@ -791,23 +824,28 @@ def panel_apply_blockfp_call(T, piv, tgt, flip, sig, *, iters: int,
 
     Parameters as `panel_apply_packed_call` with ``T : (B, mr, w) int32``,
     ``flip``/``sig`` (B, S) int32 from `panel_factor_blockfp_call` and the
-    datapath's ``iters``/``hub``.  One CUDA thread owns one column for all
-    S steps.
+    datapath's ``iters``/``hub``.
 
     Returns
     -------
-    ``T``, updated in place.
+    ``T``, updated in place.  The kernel runs the steps in the stages of
+    `levelize_steps` (derived on the host and cached): a CUDA block holds
+    up to 256 trailing columns of one matrix in shared memory, and a
+    thread replays each stage's live pairs on its column, up to 8 at a time
+    (their rows are disjoint), with no barrier; a batch too small to fill
+    the card spreads a stage's pairs over up to 8 threads a column, one
+    barrier a stage, and one warp of columns a block
+    (`_apply_slot_threads`).  The words equal the step order's.
     """
-    global PANEL_APPLY_BLOCKFP_LAUNCHES
     args = _blockfp_args(iters, hub)
     if _check_operand("panel_apply_blockfp_call", T, dtype=torch.int32):
         T.copy_(panel_apply_blockfp_reference(T, piv, tgt, flip, sig,
                                               iters=iters, hub=hub))
         return T
     B, mr, w = T.shape
-    piv_t, tgt_t = _panel_tables((_host_table(piv), _host_table(tgt)), None,
-                                 mr, w, str(T.device))
-    S = piv_t.shape[0]
+    rows = (_host_table(piv), _host_table(tgt))
+    table = _panel_stage_table(rows, None, mr, 0, str(T.device))  # no columns
+    S = len(rows[0])
     if (flip.shape != (B, S) or sig.shape != (B, S) or flip.device != T.device
             or sig.device != T.device or not flip.is_contiguous()
             or not sig.is_contiguous() or flip.dtype != torch.int32
@@ -816,11 +854,40 @@ def panel_apply_blockfp_call(T, piv, tgt, flip, sig, *, iters: int,
                          f"tensors on {T.device}")
     if B == 0 or S == 0 or w == 0:
         return T
-    threads = min(-(-w // 32) * 32, 128)
+    slot_threads = _apply_slot_threads(w, table.shape[2], B, str(T.device))
+    return _panel_apply_blockfp_launch(T, table, flip, sig, args,
+                                       256 if slot_threads == 1 else 32,
+                                       slot_threads)
+
+
+def _panel_apply_blockfp_launch(T, table, flip, sig, args, cols: int,
+                                slot_threads: int):
+    """B4b on a CUDA tensor, in place: the stages of ``table``
+    (`_panel_stage_table`) with the control words ``flip``/``sig`` and the
+    datapath's ``args`` (`_blockfp_args`); a block holds at most ``cols``
+    trailing columns, balanced over the column blocks in whole warps and
+    cut to what fits `MAX_SHARED_BYTES` beside one stage's records, with
+    ``slot_threads`` threads a column (cols x slot_threads at most 256,
+    the kernel's launch bound).  The stage records go to shared memory in
+    windows of the stages that fit beside the columns: all of them at
+    once unless the panel is tall or wide.  Returns ``T``."""
+    global PANEL_APPLY_BLOCKFP_LAUNCHES
+    B, mr, w = T.shape
+    stages, pairs = table.shape[1:]
+    record = pairs * 8 + 4            # a stage's records and its count
+    cols = min(cols, 256 // slot_threads,
+               (MAX_SHARED_BYTES - record) // (mr * 4))
+    if cols < 1:
+        raise ValueError(f"panel_apply_blockfp_call: {mr} rows and a stage "
+                         f"of {pairs} pairs do not fit one block "
+                         f"({MAX_SHARED_BYTES} B of shared memory)")
+    per_block = -(-w // -(-w // cols))
+    cols = min(-(-per_block // 32) * 32, cols, w)
+    window = min(stages, (MAX_SHARED_BYTES - mr * cols * 4) // record)
     err = _lib("blockfp").panel_apply_blockfp_launch(
-        T.data_ptr(), T.stride(0), T.stride(1), B, w, piv_t.data_ptr(),
-        tgt_t.data_ptr(), S, flip.data_ptr(), sig.data_ptr(), threads, *args,
-        _stream(T))
+        T.data_ptr(), T.stride(0), T.stride(1), B, mr, w, table.data_ptr(),
+        stages, pairs, flip.shape[1], flip.data_ptr(), sig.data_ptr(), cols,
+        slot_threads, window, *args, _stream(T))
     _check_launch("blockfp", err)
     PANEL_APPLY_BLOCKFP_LAUNCHES += 1
     return T
@@ -836,6 +903,15 @@ def _stage_key(piv, tgt, col):
     arrs = [np.ascontiguousarray(t.cpu() if isinstance(t, torch.Tensor) else t,
                                  dtype=np.int32) for t in (piv, tgt, col)]
     return tuple((a.shape, a.tobytes()) for a in arrs)
+
+
+@lru_cache(maxsize=SCHEDULE_CACHE_SIZE)
+def _wavefront_table(key, m: int, e: int, device: str):
+    """B5a's (4, S, Pmax) int32 table on ``device``: the validated stage
+    tables behind `_stage_key` (`_stage_table`) and, as row 3, each pair's
+    item end (`_with_item_ends`, the rule of `flat_stage_table`)."""
+    return torch.tensor(_with_item_ends(_stage_table(key, m, e, "cpu").numpy(),
+                                        m, e), device=device)
 
 
 @lru_cache(maxsize=SCHEDULE_CACHE_SIZE)
@@ -1050,19 +1126,21 @@ def qr_packed_wavefront_call(P, piv, tgt, col, *, cfg: GivensConfig,
     (B, m, e) int64 — the triangularized words, bit-identical to
     `qr_packed_call` on the flattened stage schedule.  A block's tiles
     beyond `MAX_SHARED_BYTES` are factorized in place in device memory.
+
+    The kernel is B1's (``csrc/qr_packed.cu``) on the caller's stages with
+    each pair's item end (`_wavefront_table`, cached): one thread per pair
+    vectors its lead once, then the matrix's threads (`_flat_threads`)
+    replay the control words over the stage's live (pair, column) items.
     """
-    global QR_PACKED_WAVEFRONT_LAUNCHES
     _check_layout(table_layout)
     if _check_operand("qr_packed_wavefront_call", P):
         return qr_packed_wavefront_reference(P, piv, tgt, col, cfg=cfg)
     B, m, e = P.shape
-    table = _stage_table(_stage_key(piv, tgt, col), m, e, str(P.device))
-    S, pairs = table.shape[1:]
-    out = _packed_launch("qr_packed_wavefront_call", "wavefront", P, table,
-                         (S, pairs), pairs, _stage_threads(pairs, e), 2,
-                         tile_b, _unit_args(cfg))
-    QR_PACKED_WAVEFRONT_LAUNCHES += int(B > 0)
-    return out
+    table = _wavefront_table(_stage_key(piv, tgt, col), m, e, str(P.device))
+    threads_x = _flat_threads("qr_packed_wavefront", table.shape[2], e, B,
+                              tile_b, str(P.device))
+    return _qr_packed_launch(P, table, cfg, tile_b, threads_x,
+                             "qr_packed_wavefront")
 
 
 def qr_blockfp_wavefront_call(X, piv, tgt, col, *, iters: int, hub: bool,

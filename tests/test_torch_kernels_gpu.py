@@ -573,6 +573,153 @@ def test_blockfp_panel_factor_stages_bit_equal(cuda, mr, nc, hub):
         assert torch.equal(W, keep)
 
 
+#: (B, mr, w, nc) of B4b's stages: a TSQR leaf's first panel (mr 128, w
+#: 152), a tree node's (mr 64, w 88), an odd batch, a region narrower than
+#: a warp, and a 12-column panel (12 pairs a stage: two chunks of 8).
+APPLY_SHAPES = ((6, 128, 152, 8), (6, 64, 88, 8), (5, 64, 88, 8),
+                (3, 20, 9, 8), (4, 40, 60, 12))
+
+#: B4b's block shapes besides the wrapper's, (most columns a block,
+#: threads a column): one thread a column in blocks of 256 and of 32
+#: columns, and a stage's pairs on 2, 4 and 8 threads a column.
+APPLY_BLOCKS = ((256, 1), (32, 1), (32, 2), (32, 4), (32, 8))
+
+
+def _apply_operands(B, mr, w, nc, rng, device, hub):
+    """The panel steps of an mr x nc panel, random (B, S) control words and
+    a wider (B, mr + 1, nc + w + 2) buffer whose region [1:, nc:nc + w] is
+    the trailing block."""
+    piv, tgt, _ = ops.panel_steps(mr, nc)
+    S = len(piv)
+    flip = torch.tensor(rng.integers(0, 2, size=(B, S)), dtype=torch.int32,
+                        device=device)
+    sig = torch.tensor(rng.integers(0, 2 ** 30, size=(B, S)),
+                       dtype=torch.int32, device=device)
+    W = chip_smoke.bfp_words(B, mr + 1, nc + w + 2, rng, device, edge=hub)
+    return piv, tgt, flip, sig, W
+
+
+def _apply_table(piv, tgt, mr, device):
+    """B4b's cached stage table of the panel steps (the wrapper's)."""
+    return qb._panel_stage_table((qb._host_table(piv), qb._host_table(tgt)),
+                                 None, mr, 0, str(device))
+
+
+def _apply_checked(launch, W, want, nc, w, what):
+    """One B4b launch on the region of a copy of ``W``: the region equals
+    ``want``, the rest of the buffer is untouched."""
+    X = W.clone()
+    before = qb.PANEL_APPLY_BLOCKFP_LAUNCHES
+    launch(X[:, 1:, nc:nc + w])
+    torch.cuda.synchronize()
+    assert qb.PANEL_APPLY_BLOCKFP_LAUNCHES == before + 1
+    keep = W.clone()
+    keep[:, 1:, nc:nc + w] = want
+    assert torch.equal(X, keep), what
+
+
+@pytest.mark.parametrize("hub,iters", chip_smoke.BFP_CONFIGS)
+def test_panel_apply_blockfp_stages_bit_equal(cuda, hub, iters):
+    """B4b in stages, bit-equal to its plain version on a strided view of a
+    wider buffer that stays untouched outside the region, at the shapes of
+    `APPLY_SHAPES`, through its wrapper and at each of `APPLY_BLOCKS`
+    (`qb._panel_apply_blockfp_launch`); one launch each."""
+    rng = np.random.default_rng(120 + iters + hub)
+    kw = dict(iters=iters, hub=hub)
+    args = qb._blockfp_args(iters, hub)
+    for B, mr, w, nc in APPLY_SHAPES:
+        piv, tgt, flip, sig, W = _apply_operands(B, mr, w, nc, rng, cuda, hub)
+        want = qb.panel_apply_blockfp_reference(W[:, 1:, nc:nc + w], piv, tgt,
+                                                flip, sig, **kw)
+        table = _apply_table(piv, tgt, mr, cuda)
+        _apply_checked(lambda T: qb.panel_apply_blockfp_call(
+            T, piv, tgt, flip, sig, **kw), W, want, nc, w, (B, mr, w, nc))
+        for cols, slots in APPLY_BLOCKS:
+            _apply_checked(lambda T: qb._panel_apply_blockfp_launch(
+                T, table, flip, sig, args, cols, slots), W, want, nc, w,
+                (B, mr, w, nc, cols, slots))
+
+
+def _stage_replay(T, table, flip, sig, iters, hub):
+    """The plain replay in the stages of ``table``, a stage's pairs (on
+    disjoint rows) in one `cg.fused_replay` call each, their control words
+    gathered at the pairs' step indices."""
+    T = T.clone()
+    comp = cg.comp_q30(iters)
+    for k, j, _, st in table.cpu().transpose(0, 1):
+        live = st >= 0
+        k, j, st = k[live], j[live], st[live]
+        T[:, k], T[:, j] = cg.fused_replay(T[:, k], T[:, j], flip[:, st],
+                                           sig[:, st], iters=iters, hub=hub,
+                                           comp=comp)
+    return T
+
+
+@pytest.mark.parametrize("hub,iters", chip_smoke.BFP_CONFIGS)
+def test_panel_apply_blockfp_stage_records_in_windows(cuda, hub, iters):
+    """A 256-row panel of 128 columns (tile_m 256, panel_n 128) has 382
+    stages of up to 128 pairs: their records (393 KB) exceed shared memory,
+    so B4b stages them in windows beside the columns.  Through its wrapper
+    (8 threads a column at this batch) and at one thread a column, whose
+    300 columns take two blocks cut to shared memory, it is bit-equal to
+    the plain replay in stages, which equals the step order on a small
+    panel here (`tests/test_torch_panel_stages.py` holds it on the CPU)."""
+    rng = np.random.default_rng(140 + iters + hub)
+    kw = dict(iters=iters, hub=hub)
+    piv, tgt, flip, sig, W = _apply_operands(2, 20, 9, 8, rng, cuda, hub)
+    table = _apply_table(piv, tgt, 20, cuda)
+    assert torch.equal(_stage_replay(W, table, flip, sig, **kw)[:, :20],
+                       qb.panel_apply_blockfp_reference(W[:, :20], piv, tgt,
+                                                        flip, sig, **kw))
+    B, mr, w, nc = 2, 256, 300, 128
+    piv, tgt, flip, sig, W = _apply_operands(B, mr, w, nc, rng, cuda, hub)
+    table = _apply_table(piv, tgt, mr, cuda)
+    stages, pairs = table.shape[1:]
+    assert (stages, pairs) == (382, 128)
+    assert stages * (8 * pairs + 4) > qb.MAX_SHARED_BYTES
+    want = _stage_replay(W[:, 1:, nc:nc + w], table, flip, sig, **kw)
+    _apply_checked(lambda T: qb.panel_apply_blockfp_call(
+        T, piv, tgt, flip, sig, **kw), W, want, nc, w, "wrapper")
+    _apply_checked(lambda T: qb._panel_apply_blockfp_launch(
+        T, table, flip, sig, qb._blockfp_args(iters, hub), 256, 1), W, want,
+        nc, w, "one thread a column")
+
+
+def test_packed_wavefront_on_flat_kernel_widened_and_in_device_memory(
+        cuda, monkeypatch):
+    """B5a runs B1's kernel on the caller's Sameh–Kuck stages with their
+    item ends: at 32 x 32 with Q on a batch of 3, the wrapper's threads a
+    matrix widened past its `FLAT_THREADS` entry (`_flat_threads`), at
+    other block shapes, and with its tiles in device memory, bit-equal to
+    its plain version and to B1 on the flattened stages; one B5a launch a
+    call and none of B1's."""
+    cfg = CONFIGS[2]
+    tabs = chip_smoke.stage_tables(32, 32)
+    P = chip_smoke.encoded_words(cfg, 3, 32, 32, True,
+                                 np.random.default_rng(130), cuda)
+    want = qb.qr_packed_wavefront_reference(P, *tabs, cfg=cfg)
+    assert torch.equal(qb.qr_packed_call(P, cfg=cfg,
+                                         steps=chip_smoke.flat_order(32, 32)),
+                       want)
+    table = qb._wavefront_table(qb._stage_key(*tabs), 32, 64, str(cuda))
+    threads = qb._flat_threads("qr_packed_wavefront", table.shape[2], 64, 3,
+                               None, str(cuda))
+    assert threads > qb.FLAT_THREADS["qr_packed_wavefront"]
+    calls = [lambda: qb.qr_packed_wavefront_call(P, *tabs, cfg=cfg)]
+    calls += [lambda tb=tb, th=th: qb._qr_packed_launch(
+        P, table, cfg, tb, th, "qr_packed_wavefront")
+        for tb, th in ((1, 32), (2, 64), (4, 256))]
+    for shared_bytes in (qb.MAX_SHARED_BYTES, 0):          # 0: device memory
+        monkeypatch.setattr(qb, "MAX_SHARED_BYTES", shared_bytes)
+        for call in calls:
+            before = (qb.QR_PACKED_WAVEFRONT_LAUNCHES, qb.QR_PACKED_LAUNCHES)
+            got = call()
+            torch.cuda.synchronize()
+            assert (qb.QR_PACKED_WAVEFRONT_LAUNCHES,
+                    qb.QR_PACKED_LAUNCHES) == (before[0] + 1, before[1])
+            assert torch.equal(got, want)
+
+
 def test_wavefront_and_complex_device_memory_tiles_at_128(cuda):
     """At 128 x 128 with Q the packed wavefront tile (256 KiB) and the
     complex tiles (512 KiB) exceed shared memory and live in device memory:

@@ -15,7 +15,11 @@ JAX package on the CPU.
 * The block-FP panel factor's plain version, fed the flattened stage order
   (as the kernel B4a runs it), gives the step order's significands and,
   mapped back through the step indices, its control words, HUB and
-  conventional.
+  conventional; the block-FP panel apply's (as B4b runs it), with the
+  control words gathered at the step indices, the step order's
+  significands.
+* The panel factor's and apply's cached stage tables come from one
+  levelization of the panel's rows.
 
 Inputs are made with numpy from a seed; every JAX call runs once, in a
 module-scoped fixture.
@@ -83,6 +87,21 @@ def test_levelize_steps_of_the_flat_schedule():
     _check_stages(lv[:3], lv[3], cols, 32)
     none = tqb.levelize_steps((), (), (), 4)
     assert none.shape == (4, 0, 0)
+
+
+@pytest.mark.parametrize("mr,nc", [(12, 6), (9, 8), (64, 8)])
+def test_panel_factor_and_apply_tables_share_one_levelization(mr, nc):
+    """The factor's cached stage table (with lead columns) and the apply's
+    (without) come from one cached levelization: rows 0, 1 and 3 equal,
+    and each equals `levelize_steps` of its own tables."""
+    rows = tuple(tuple(int(v) for v in t) for t in tops.panel_steps(mr, nc))
+    factor = tqb._panel_stage_table(rows[:2], rows[2], mr, nc, "cpu").numpy()
+    apply_ = tqb._panel_stage_table(rows[:2], None, mr, 0, "cpu").numpy()
+    np.testing.assert_array_equal(factor, tqb.levelize_steps(*rows, mr))
+    np.testing.assert_array_equal(apply_, tqb.levelize_steps(*rows[:2], None,
+                                                             mr))
+    np.testing.assert_array_equal(factor[[0, 1, 3]], apply_[[0, 1, 3]])
+    assert tqb._panel_levels(rows[:2], mr) is tqb._panel_levels(rows[:2], mr)
 
 
 def _configs(hub):
@@ -174,3 +193,29 @@ def test_blockfp_panel_factor_stage_order_equals_step_order(mr, nc, hub):
     back = np.empty(live.sum(), dtype=np.int64)
     back[step[live]] = np.arange(live.sum())       # stage position of each step
     assert torch.equal(sflip[:, back], flip) and torch.equal(ssig[:, back], sig)
+
+
+@pytest.mark.parametrize("hub", [False, True], ids=["conv", "hub"])
+@pytest.mark.parametrize("mr,nc", [(12, 6), (9, 8), (5, 9), (24, 12)])
+def test_blockfp_panel_apply_stage_order_equals_step_order(mr, nc, hub):
+    """`panel_apply_blockfp_reference` fed the flattened stage order of
+    `ops.panel_stages` (as B4b runs it), with each pair's (flip, sigma)
+    gathered at its step index, gives the step order's significands; the
+    24 x 12 panel has 12 pairs a stage (B4b's two chunks of 8)."""
+    rng = np.random.default_rng(mr * nc + hub + 50)
+    tables, step = tops.panel_stages(mr, nc)
+    live = step >= 0
+    assert tables.shape[2] == min(mr - 1, nc, mr // 2)
+    piv, tgt, _ = tops.panel_steps(mr, nc)
+    S = len(piv)
+    T = torch.tensor(rng.integers(-2 ** 24, 2 ** 24 + 1, size=(3, mr, 7)),
+                     dtype=torch.int32)
+    flip = torch.tensor(rng.integers(0, 2, size=(3, S)), dtype=torch.int32)
+    sig = torch.tensor(rng.integers(0, 2 ** 30, size=(3, S)), dtype=torch.int32)
+    kw = dict(iters=24, hub=hub)
+    want = tqb.panel_apply_blockfp_reference(T, piv, tgt, flip, sig, **kw)
+    order = torch.tensor(step[live], dtype=torch.int64)
+    got = tqb.panel_apply_blockfp_reference(T, tables[0][live], tables[1][live],
+                                            flip[:, order], sig[:, order], **kw)
+    assert torch.equal(got, want)
+

@@ -2,7 +2,8 @@
 package on the CPU.
 
 * `_stage_tables` gives the JAX package's (S, Pmax) tables, padding and
-  errors included, and `cordic_givens.fused_rotate_pairs` its int32 words
+  errors included (and B5a's table adds each pair's item end, as the flat
+  kernels' tables do), and `cordic_givens.fused_rotate_pairs` its int32 words
   (HUB and conventional, iters 24 and 30, random and edge significands,
   padded pairs of zero rows).
 * The plain versions of the two wavefront kernels
@@ -121,6 +122,23 @@ def test_kernel_stage_table_checks_pairs():
                          (([[0]], [[1]], [[0, 0]]), 4, 8)):
         with pytest.raises(ValueError):
             tqb._stage_table(tqb._stage_key(*tables), m, e, "cpu")
+
+
+@pytest.mark.parametrize("m,n", [(32, 32), (9, 7), (6, 3), (3, 6)])
+def test_packed_wavefront_item_ends(m, n):
+    """B5a's table (`_wavefront_table`): the caller's Sameh–Kuck stages
+    and, as row 3, each pair's item end by `flat_stage_table`'s rule, a
+    padded pair owning no item: the whole table is the one the flat kernel
+    B1 runs on the flattened stages."""
+    e = n + m
+    piv, tgt, col = tops._stage_tables(tq.sameh_kuck_schedule(m, n), m)
+    table = tqb._wavefront_table(tqb._stage_key(piv, tgt, col), m, e,
+                                 "cpu").numpy()
+    np.testing.assert_array_equal(table[:3], np.stack([piv, tgt, col]))
+    owned = np.diff(table[3], axis=1, prepend=0)
+    np.testing.assert_array_equal(owned, np.where(piv < m, e - col, 0))
+    flat = tuple(s for st in tq.sameh_kuck_schedule(m, n) for s in st)
+    np.testing.assert_array_equal(table, tqb.flat_stage_table(flat, m, e))
 
 
 @pytest.mark.parametrize("iters", [24, 30])
