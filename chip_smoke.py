@@ -9,9 +9,11 @@ the three routes of ``QRDEngine(backend='cordic_pallas')`` and ``.solve``
 at full width — flat (8192 x 32 x 32), panel (1024 x 64 x 64) and TSQR
 (32 x 4096 x 32) — then the same routes of the int32 block-FP lane
 ``QRDEngine(backend='blockfp_pallas')`` and its streaming QRD-RLS
-(``engine.rls``), then the Sameh–Kuck wavefront of both lanes
-(``schedule='sameh_kuck'``) and the complex datapath (``dtype=
-'complex128'``, both schedules, and the MIMO detector's 4 x 4 solve), then
+(``engine.rls``), the TSQR route of both lanes at tile_m 4096 (whose
+panels the panel factors hold in device memory), then the Sameh–Kuck
+wavefront of both lanes (``schedule='sameh_kuck'``) and the complex
+datapath (``dtype='complex128'``, both schedules, and the MIMO
+detector's 4 x 4 solve), then
 the dual-int32 lane route of the packed words (``ops.qr_packed`` and
 ``ops.qr_packed_wavefront`` with ``lanes=True``, against the engine's
 int64 route), the standalone rotator's row API
@@ -49,7 +51,8 @@ from repro_torch.core.givens import GivensConfig, GivensUnit  # noqa: E402
 from repro_torch.core.qrd import givens_schedule, sameh_kuck_schedule  # noqa: E402
 from repro_torch.core.qrd import _split_qr as split_qr  # noqa: E402
 from repro_torch.core.qrd import snr_db as port_snr_db  # noqa: E402
-from repro_torch.core.qrd import (qr_blockfp_pallas, qr_cordic_complex_pallas,  # noqa: E402
+from repro_torch.core.qrd import (qr_blockfp_panel, qr_blockfp_pallas,  # noqa: E402
+                                  qr_cordic_complex_pallas,
                                   qr_cordic_pallas)
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import cordic_givens as cg  # noqa: E402
@@ -79,6 +82,13 @@ PANEL_N = 8
 #: relative error against each backend's SOLVE_TOLERANCES entry is printed
 #: beside it, met or unmet.
 TSQR_TOL = 1e-4
+
+#: The TSQR route at tile_m 4096 on a small batch with Q: a leaf's
+#: 4096-row panel exceeds a block's shared memory at the lane's panel width
+#: (packed 4096 x 8 int64 words, block-FP 4096 x 16 int32 significands), so
+#: the panel factors work on it in device memory (`qb._panel_tile`).
+TALL_BATCH, TALL_M, TALL_N, TALL_TILE_M = 2, 8192, 32, 4096
+TALL_PANEL_N = {"packed": 8, "blockfp": 16}
 
 #: The flat kernel beyond shared memory: 128 x 128 with Q is a 128 x 256
 #: int64 tile, 256 KiB a matrix, factorized in device memory.
@@ -275,6 +285,13 @@ def big_operand():
     return np.random.default_rng(SEED + 6).normal(size=(BIG_BATCH, BIG_M, BIG_M))
 
 
+def tall_operand():
+    """The batch of 8192 x 32 matrices of the TSQR route at tile_m 4096,
+    from its seed."""
+    return np.random.default_rng(SEED + 21).normal(
+        size=(TALL_BATCH, TALL_M, TALL_N))
+
+
 def tsqr_operands():
     """The TSQR paths' batch of 4096 x 32 matrices and right-hand sides,
     from their seed."""
@@ -398,18 +415,18 @@ def panel_route_work(B, m, n, e, pw=PANEL_N, lane="packed"):
     return work
 
 
-def tsqr_work(B, m, n, tile_m, compute_q, lane="packed"):
+def tsqr_work(B, m, n, tile_m, compute_q, lane="packed", pw=PANEL_N):
     """`panel_route_work` summed over a TSQR call: the leaves, then one
     batch of stacked (2n, n) R pairs per tree level."""
     L = -(-m // tile_m)
     parts = [panel_route_work(B * L, tile_m, n, n + (tile_m if compute_q else 0),
-                              lane=lane)]
+                              pw, lane)]
     cur = L
     while cur > 1:
         pairs = cur // 2
         parts.append(panel_route_work(B * pairs, 2 * n, n,
-                                      n + (2 * n if compute_q else 0),
-                                      lane=lane))
+                                      n + (2 * n if compute_q else 0), pw,
+                                      lane))
         cur = pairs + cur % 2
     return {name: {key: sum(p[name][key] for p in parts)
                    for key in parts[0][name]} for name in parts[0]}
@@ -1266,6 +1283,69 @@ def tsqr_path(device, lane):
                 work=work)
 
 
+def tall_node_qr(lane):
+    """The node factorization of the host tree at tile_m 4096, outside the
+    panel kernels under test: the packed lane's flat kernel (its 4096 x
+    4128 tile in device memory), and on the block-FP lane, whose flat
+    kernel keeps its tile in shared memory, the block-FP panel route at
+    panel_n 8 (its panels in shared memory; the panel route's words are
+    the flat route's at any panel width)."""
+    if lane == "packed":
+        return lane_node_qr(lane)
+    return lambda X: qr_blockfp_panel(X, iters=24, hub=True, panel_n=8)
+
+
+def tall_tsqr_phase(device):
+    """The TSQR route at tile_m `TALL_TILE_M` on both lanes, with Q: each
+    leaf's panels exceed a block's shared memory, so the panel factors
+    work on them in device memory.  R bit-equal to the host tree on
+    `tall_node_qr` for every matrix, Q within 1e-12 of it, launches as
+    planned; the panel kernels timed per engine call (`tiled_timing`)."""
+    A = torch.tensor(tall_operand(), device=device)
+    out = {}
+    for lane, pw in TALL_PANEL_N.items():
+        label = PATH_LANES[lane]["label"]
+        factor = LANES[lane][0]
+        mr = TALL_TILE_M
+        pairs = ops.panel_stages(mr, pw)[1].shape[1]
+        _, device_panel = qb._panel_tile(
+            factor, None, qb._stage_threads(pairs, pw), mr, pw, TALL_N + mr,
+            pairs, WORD_BYTES[lane])
+        if not device_panel:
+            fail(f"{label}tall tsqr: a {mr} x {pw} panel fits shared memory; "
+                 f"the phase needs a larger one")
+        eng = lane_engine(lane, device, tiling="tsqr", tile_m=TALL_TILE_M,
+                          panel_n=pw)
+        work = tsqr_work(TALL_BATCH, TALL_M, TALL_N, TALL_TILE_M, True, lane,
+                         pw)
+        t0 = time.perf_counter()
+        (Q, R), counts = counted_call(eng, A)
+        wall = time.perf_counter() - t0
+        check_launches(f"{label}tall tsqr path", counts, work)
+        if not (torch.isfinite(Q).all() and torch.isfinite(R).all()):
+            fail(f"{label}tall tsqr: non-finite factors")
+        q_diff = 0.0
+        for i in range(TALL_BATCH):
+            Qr, Rr = tsqr_host_reference(A[i], tall_node_qr(lane), TALL_TILE_M)
+            compare(f"{label}tall tsqr: R of matrix {i} against the host tree",
+                    R[i].view(torch.int64), Rr.view(torch.int64))
+            q_diff = max(q_diff, (Q[i] - Qr).abs().max().item())
+        if not q_diff <= 1e-12:
+            fail(f"{label}tall tsqr: Q differs from the host tree by {q_diff} "
+                 f"(limit 1e-12)")
+        print(f"{label}tall tsqr path at {tuple(A.shape)}, tile_m "
+              f"{TALL_TILE_M}, panel_n {pw}: {mr} x {pw} panels in device "
+              f"memory; R bit-equal to the host tree for all "
+              f"{TALL_BATCH} matrices, Q within {q_diff:.3e}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }; {wall:.3f} s wall "
+              f"(first call)", flush=True)
+        ms, wall_ms = tiled_timing(f"{label}tall tsqr path", eng, A, work,
+                                   repeats=3, lane=lane)
+        out[lane] = dict(ms=ms[factor], launches=counts[factor], work=work,
+                         shape=[TALL_BATCH, TALL_M, TALL_N], panel=[mr, pw])
+    return out
+
+
 def rls_phase(device):
     """engine.rls at the beamformer's size: the carried state on the card
     bit-equal to the same state on the CPU, and its weights near float
@@ -2052,36 +2132,43 @@ def complex_path(device):
 
 
 def wavefront_block_phase(A, grid=False):
-    """B5a at other block shapes (`block_lines`), kernel only on its cached
-    table (`qb._wavefront_table`): on the HUB words [A | I] of the
-    wavefront path at (BATCH, M, 2 M) and, one matrix an SM, tiles in
-    device memory, at (BIG_BATCH, BIG_M, 2 BIG_M): by default at the
-    wrapper's own block shape at the first, and at its `FLAT_THREADS` entry
-    and its widened threads at the second; with ``grid``
-    (``--block-grid``) at `FLAT_BLOCKS` and `FLAT_BIG_THREADS`, the readings
-    that chose the entry."""
+    """B5a and B5b (B1's and B2's kernels on the Sameh–Kuck stages) at
+    other block shapes (`block_lines`), kernel only on their cached table
+    (`qb._wavefront_table`): on the HUB words [A | I] of the wavefront
+    path at (BATCH, M, 2 M) and, one matrix an SM, at (BIG_BATCH, BIG_M,
+    2 BIG_M) (B5a's tiles in device memory, B5b's int32 tiles in shared
+    memory): by default at the wrapper's own block shape at the first, and
+    at its `FLAT_THREADS` entry and its widened threads at the second; with
+    ``grid`` (``--block-grid``) at `FLAT_BLOCKS` and `FLAT_BIG_THREADS`,
+    the readings that chose the entries."""
     g = GivensConfig(hub=True, n=26)
+    bfp_args = qb._blockfp_args(24, True)
+    launchers = {"packed": lambda X, table, tb, th: qb._qr_packed_launch(
+                     X, table, g, tb, th, "qr_packed_wavefront"),
+                 "blockfp": lambda X, table, tb, th: qb._qr_blockfp_launch(
+                     X, table, bfp_args, tb, th, "qr_blockfp_wavefront")}
 
-    def kernel(A):
-        X, fns = lane_words("packed", A)
+    def kernel(lane, A):
+        X, fns = lane_words(lane, A)
         B, m, e = X.shape
         table = qb._wavefront_table(qb._stage_key(*stage_tables(m, A.shape[2])),
                                     m, e, str(X.device))
-        threads = qb._flat_threads("qr_packed_wavefront", table.shape[2], e, B,
+        threads = qb._flat_threads(WF_KERNELS[lane], table.shape[2], e, B,
                                    None, str(X.device))
-        return threads, tuple(X.shape), {"B5a": (
-            lambda tb, th: qb._qr_packed_launch(X, table, g, tb, th,
-                                                "qr_packed_wavefront"),
-            fns["wavefront"](X))}, lambda: fns["wavefront"](X)
+        launch = launchers[lane]
+        return threads, tuple(X.shape), (
+            lambda tb, th: launch(X, table, tb, th),
+            fns["wavefront"](X)), lambda: fns["wavefront"](X)
 
-    threads, shape, main, _ = kernel(A)
-    default, big_shape, big, wrapper = kernel(
-        torch.tensor(big_operand(), device=A.device))
-    blocks, big_threads = (FLAT_BLOCKS, FLAT_BIG_THREADS) if grid else (
-        ((qb.TILE_B, threads),),
-        tuple(sorted({qb.FLAT_THREADS["qr_packed_wavefront"], default})))
-    block_lines(main, shape, big, big_shape, {"B5a": wrapper}, {"B5a": default},
-                blocks, big_threads)
+    big_A = torch.tensor(big_operand(), device=A.device)
+    for lane, name in (("packed", "B5a"), ("blockfp", "B5b")):
+        threads, shape, main, _ = kernel(lane, A)
+        default, big_shape, big, wrapper = kernel(lane, big_A)
+        blocks, big_threads = (FLAT_BLOCKS, FLAT_BIG_THREADS) if grid else (
+            ((qb.TILE_B, threads),),
+            tuple(sorted({qb.FLAT_THREADS[WF_KERNELS[lane]], default})))
+        block_lines({name: main}, shape, {name: big}, big_shape,
+                    {name: wrapper}, {name: default}, blocks, big_threads)
 
 
 def complex_block_phase(P, Pb, cfg, grid=False):
@@ -2525,6 +2612,44 @@ def rotator_full_phase(device):
     return result
 
 
+def fused_layout_phase(device, grid=False):
+    """B6c kernel only (`cg._fused_launch`) at the row API's full shapes,
+    HUB, iters `ROT_ITERS_FULL`: by default at the layout its wrapper
+    picks (`cg._fused_layout`) on operands it moves in 16-byte vectors;
+    with ``grid`` (``--block-grid``) also at every other layout of
+    `cg.FUSED_LAYOUTS` that takes the row, and at the kept layout on row
+    views of odd stride, which take the single-word path.  Two rounds,
+    median of 5 each, every reading bit-equal to the wrapper's words."""
+    rng = np.random.default_rng(SEED + 16)
+    args = cg._rotator_args(ROT_ITERS_FULL, True)
+    for B, L in ROT_FULL:
+        X = rotator_rows(B, L, rng, device)
+        want = cg.fused_call(X[0], X[1], iters=ROT_ITERS_FULL, hub=True)
+        kept = cg._fused_layout(L)
+        cases = [(kept, X[0], X[1])]
+        if grid:
+            cases += [((T, K), X[0], X[1]) for T, K in cg.FUSED_LAYOUTS
+                      if (T, K) != kept and (L <= T * K or T == 32)]
+            Z = torch.zeros((2, B, L + 1), dtype=torch.int32, device=device)
+            Z[..., :L] = X
+            cases.append((kept, Z[0, :, :L], Z[1, :, :L]))
+        cells = []
+        for (T, K), x, y in cases:
+            vectors = cg._fused_vectors((x, y, *want))
+            cg._fused_launch(x, y, args, T, K)
+            ms = []
+            for _ in range(2):
+                t, out = _event_ms(lambda: cg._fused_launch(x, y, args, T, K),
+                                   5)
+                compare(f"fused at {T} x {K}, ({B}, {L})", out, want)
+                ms.append(t)
+            cells.append(f"{T}x{K}{'' if vectors else ' single-word'} "
+                         f"{ms[0]:.4f}/{ms[1]:.4f}")
+        print(f"fused layouts at (B, L) = ({B}, {L}), threads a row x columns "
+              f"a thread, ms (two rounds, median of 5; the wrapper takes "
+              f"{kept[0]}x{kept[1]}): " + ", ".join(cells), flush=True)
+
+
 def cplx_snr_db(A, Q, R):
     """`snr_db` with |.|^2, for complex factors."""
     num = torch.sum(A.abs() ** 2, dim=(-2, -1))
@@ -2730,10 +2855,11 @@ def rotator_entries(rot):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--block-grid", action="store_true",
-                        help="read B5a and B7a at every block shape of "
-                             "FLAT_BLOCKS and FLAT_BIG_THREADS, not only "
-                             "their own, and B4b kernel only at every "
-                             "count of APPLY_SLOTS")
+                        help="read B5a, B5b and B7a at every block shape "
+                             "of FLAT_BLOCKS and FLAT_BIG_THREADS, not only "
+                             "their own, B4b kernel only at every count of "
+                             "APPLY_SLOTS, and B6c at every layout of "
+                             "cg.FUSED_LAYOUTS")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one GPU",
@@ -2754,7 +2880,7 @@ def main():
 def run(device, block_grid=False):
     """Every phase on ``device``; returns 0 or exits non-zero."""
     t0 = time.perf_counter()
-    sources = ["qr_packed", "panel_packed", "blockfp", "wavefront",
+    sources = ["qr_packed", "panel_packed", "blockfp",
                "complex_packed", "rotator", "packed_lanes"]
     _build.build(sources)                      # one nvcc each, in parallel
     print(f"build: {', '.join(s + '.cu' for s in sources)} in "
@@ -2794,6 +2920,7 @@ def run(device, block_grid=False):
     bfp_plain = plain_check(bfp_panel["captured"], cfg)
     panel_replay_phase({"block-FP panel": bfp_panel, "block-FP tsqr": bfp_tsqr},
                        block_grid)
+    tall = tall_tsqr_phase(device)
 
     wavefront_parity_phase(device)
     wave = {lane: wavefront_path(device, lane, A, As, b) for lane in LANES}
@@ -2809,6 +2936,7 @@ def run(device, block_grid=False):
     print(f"lanes phases: {time.perf_counter() - t_lanes:.1f} s", flush=True)
     rotator_parity_phase(device)
     rot = rotator_full_phase(device)
+    fused_layout_phase(device, block_grid)
     baselines_phase(device)
     quickstart_phase()
 
@@ -2962,7 +3090,7 @@ def run(device, block_grid=False):
             "route": "cuda",
             "source": ("src/repro_torch/kernels/csrc/qr_packed.cu"
                        if lane == "packed" else
-                       "src/repro_torch/kernels/csrc/wavefront.cu"),
+                       "src/repro_torch/kernels/csrc/blockfp.cu"),
             "replaces": where,
             "replaces_function": function,
             "launches": w["launches"] + (wave_big["launches"]
@@ -3023,6 +3151,19 @@ def run(device, block_grid=False):
             "device_tile_shape": cplx["big_shape"],
             "config": "hub n=26 iters=24",
         })
+    for entry in kernels:
+        lane = {"panel_factor_packed": "packed",
+                "panel_factor_blockfp": "blockfp"}.get(entry["name"])
+        if lane:
+            t = tall[lane]
+            w = t["work"][entry["name"]]
+            entry.update(
+                device_panel_ms=t["ms"],
+                device_panel_bound_ms=(
+                    _bound(cfg, w["elements"], w["bytes"]) if lane == "packed"
+                    else bfp_bound(True, 24, w["elements"], w["bytes"]))[0],
+                device_panel_launches=t["launches"],
+                device_panel_shape=t["shape"], device_panel_tile=t["panel"])
     kernels += lane_entries(lanes, lane_launches, timing, big)
     kernels += rotator_entries(rot)
     stages = {

@@ -299,9 +299,9 @@ def qr_cordic_wavefront(A, unit: GivensUnit, compute_q=True, stages=None,
     All rotations of a stage touch disjoint row pairs and run at once, so
     the sequential depth falls from ``len(steps)`` rotations to
     ``len(stages)`` stages; (Q, R) are bit-identical to `qr_cordic` on the
-    flattened stage schedule.  On a CUDA tensor this launches
-    ``csrc/wavefront.cu``; on a CPU tensor it runs the kernel's plain
-    version.
+    flattened stage schedule.  On a CUDA tensor this launches B1's
+    kernel (``csrc/qr_packed.cu``) on the stages; on a CPU tensor it runs
+    the kernel's plain version.
 
     Parameters
     ----------

@@ -31,25 +31,27 @@ SIGNATURES = {
     # (in, out, stage table, B, m, e, stages, pairs, tile_b, threads_x,
     #  device_tile, ...)
     "qr_packed_launch": [C_PTR] * 3 + [C_INT] * 8 + UNIT_ARGTYPES,
-    # (P, sb, ld, B, mr, pw | w, stage table, stages, pairs, S, flip, sig, ...)
+    # (P, sb, ld, B, mr, pw | w, stage table, stages, pairs, S, flip, sig,
+    #  then the factor's tile_b, threads_x, device_panel | the apply's cols,
+    #  ...)
     "panel_factor_launch": ([C_PTR, C_LL, C_LL] + [C_INT] * 3 + [C_PTR]
-                            + [C_INT] * 3 + [C_PTR] * 2 + [C_INT] * 2
+                            + [C_INT] * 3 + [C_PTR] * 2 + [C_INT] * 3
                             + UNIT_ARGTYPES),
     "panel_apply_launch": ([C_PTR, C_LL, C_LL] + [C_INT] * 3 + [C_PTR]
                            + [C_INT] * 3 + [C_PTR] * 2 + [C_INT]
                            + UNIT_ARGTYPES),
     # block-FP launches end in (iters, hub, comp, stream)
     "qr_blockfp_launch": [C_PTR] * 3 + [C_INT] * 10 + [C_PTR],
+    # (P, sb, ld, B, mr, pw, stage table, stages, pairs, S, flip, sig,
+    #  tile_b, threads_x, device_panel, ...)
     "panel_factor_blockfp_launch": ([C_PTR, C_LL, C_LL] + [C_INT] * 3
                                     + [C_PTR] + [C_INT] * 3 + [C_PTR] * 2
-                                    + [C_INT] * 5 + [C_PTR]),
+                                    + [C_INT] * 6 + [C_PTR]),
     # (P, sb, ld, B, mr, w, stage table, stages, pairs, S, flip, sig, cols,
     #  slot threads, window, ...)
     "panel_apply_blockfp_launch": ([C_PTR, C_LL, C_LL] + [C_INT] * 3
                                    + [C_PTR] + [C_INT] * 3 + [C_PTR] * 2
                                    + [C_INT] * 6 + [C_PTR]),
-    # (in, out, tables, B, m, e, S, P, tile_b, threads_x[, device_tile])
-    "qr_blockfp_wavefront_launch": [C_PTR] * 3 + [C_INT] * 10 + [C_PTR],
     # (in, out, stage table, B, m, e, S, P, tile_b, threads_x, device_tile)
     "qr_packed_complex_launch": [C_PTR] * 3 + [C_INT] * 8 + UNIT_ARGTYPES,
     "qr_packed_complex_wavefront_launch": ([C_PTR] * 3 + [C_INT] * 8
@@ -64,7 +66,8 @@ SIGNATURES = {
                          + [C_PTR]),
     "rotation_launch": ([C_PTR] * 4 + [C_LL] * 4 + [C_PTR] * 2 + [C_INT] * 6
                         + [C_PTR]),
-    "fused_launch": [C_PTR] * 4 + [C_LL] * 4 + [C_INT] * 5 + [C_PTR],
+    # (..., B, L, threads a row, columns a thread, vec, iters, hub, comp)
+    "fused_launch": [C_PTR] * 4 + [C_LL] * 4 + [C_INT] * 8 + [C_PTR],
 }
 
 

@@ -19,7 +19,7 @@ These functions are the plain versions of the block-FP CUDA kernels
 * `fused_replay`       — the replay of exported control words over the
   trailing columns (`panel_apply_blockfp_call`);
 * `fused_rotate_pairs` — one Sameh–Kuck stage of the wavefront kernel
-  (`qr_blockfp_wavefront_call`, ``csrc/wavefront.cu``).
+  (`qr_blockfp_wavefront_call`, B2's kernel on the stages).
 
 and the module holds the standalone rotator's three CUDA kernels
 (``csrc/rotator.cu``), which replace their namesakes of
@@ -66,10 +66,18 @@ VECTORING_LAUNCHES = 0
 ROTATION_LAUNCHES = 0
 FUSED_LAUNCHES = 0
 
-#: Threads a block of the rotator kernels, and rows a block of the fused
-#: kernel (``kThreads`` and ``kRows`` of ``csrc/rotator.cu``).
+#: Threads a block of the rotator kernels (``kThreads`` of
+#: ``csrc/rotator.cu``).
 _THREADS = 256
-_FUSED_ROWS = 256
+
+#: Columns a thread of the fused kernel turns as independent chains, and
+#: the (threads a row, columns a thread) layouts it is compiled for
+#: (``fused_launch``): 8 columns a thread on 1-32 threads a row, which
+#: `_fused_layout` picks by row width, and two others for the readings at
+#: rows of 128.
+FUSED_CHAINS = 8
+FUSED_LAYOUTS = ((1, 8), (2, 8), (4, 8), (8, 8), (16, 8), (32, 8), (32, 4),
+                 (8, 16))
 
 
 def packed_to_lanes(p):
@@ -384,6 +392,17 @@ def rotation_call(x, y, flip, sig, *, iters: int, hub: bool, out=None):
     return xo, yo
 
 
+def _fused_layout(L: int):
+    """(threads a row, columns a thread) of the fused kernel on rows of L:
+    `FUSED_CHAINS` columns a thread, on the fewest threads a row (a power
+    of two, at most a warp) that cover the row; a row wider than 32 x
+    `FUSED_CHAINS` takes several tiles."""
+    threads = 1
+    while threads < 32 and threads * FUSED_CHAINS < L:
+        threads *= 2
+    return threads, FUSED_CHAINS
+
+
 def fused_call(x, y, *, iters: int, hub: bool):
     """Vectoring on column 0 and its replay on the whole row pair, in one
     pass: one CUDA launch.
@@ -401,21 +420,50 @@ def fused_call(x, y, *, iters: int, hub: bool):
     (xr, yr) : (B, L) int32 rotated rows, bit-identical to `vectoring_call`
     on column 0 followed by `rotation_call` on the rest.  An empty operand
     launches nothing.
+
+    The kernel turns each row on `_fused_layout` threads, each rotating
+    its columns as independent chains while the row's lead is vectored;
+    it reads and writes 16-byte vectors where the operands' base pointers
+    and row strides allow.
     """
-    global FUSED_LAUNCHES
     args = _rotator_args(iters, hub)
     if _launch.check_operand("fused_call", x, y, ndim=2, dtype=torch.int32):
         return fused_reference(x, y, iters=iters, hub=hub)
+    return _fused_launch(x, y, args, *_fused_layout(x.shape[1]))
+
+
+def _fused_vectors(ops) -> bool:
+    """Whether the fused kernel moves the (B, L) operands ``ops`` in 16-byte
+    vectors: L a multiple of 4, each base 16-byte aligned and each row
+    stride a multiple of 4 words (any stride for one row)."""
+    B, L = ops[0].shape
+    return L % 4 == 0 and all(t.data_ptr() % 16 == 0
+                              and (B == 1 or t.stride(0) % 4 == 0)
+                              for t in ops)
+
+
+def _fused_launch(x, y, args, threads_row: int, chains: int):
+    """B6c on CUDA tensors at a layout of `FUSED_LAYOUTS` (``threads_row``
+    threads a row, ``chains`` columns a thread; only 32 threads a row take
+    rows wider than one tile); ``args`` are `_rotator_args`.  Returns new
+    (B, L) outputs."""
+    global FUSED_LAUNCHES
     B, L = x.shape
-    if _FUSED_ROWS * L >= 2 ** 31:
+    tile = threads_row * chains
+    if (threads_row, chains) not in FUSED_LAYOUTS or (L > tile
+                                                      and threads_row != 32):
+        raise ValueError(f"fused_call: no layout of {threads_row} threads a "
+                         f"row with {chains} columns each for rows of {L}")
+    if L > 2 ** 31 - 1 - tile:
         raise ValueError(f"fused_call: rows of {L} elements exceed the "
-                         f"kernel's int32 block index")
+                         f"kernel's int32 column index")
     xo, yo = _outputs("fused_call", x, None)
     if B == 0 or L == 0:
         return xo, yo
+    ops = (x, y, xo, yo)
     err = _launch.lib("rotator").fused_launch(
-        x.data_ptr(), y.data_ptr(), xo.data_ptr(), yo.data_ptr(),
-        *(t.stride(0) for t in (x, y, xo, yo)), B, L, *args,
+        *(t.data_ptr() for t in ops), *(t.stride(0) for t in ops), B, L,
+        threads_row, chains, int(_fused_vectors(ops)), *args,
         _launch.stream(x))
     _launch.check_launch("rotator", err)
     FUSED_LAUNCHES += 1

@@ -6,9 +6,13 @@
 // Replaces: src/repro/kernels/qrd_blocked.py,
 //   _qr_blockfp_kernel / qr_blockfp_call (B2),
 //   _panel_factor_blockfp_kernel / panel_factor_blockfp_call (B4a) and
-//   _panel_apply_blockfp_kernel / panel_apply_blockfp_call (B4b); their
-//   bodies are cordic_givens.fused_rotate_block, fused_rotate_ctrl and
-//   fused_replay.
+//   _panel_apply_blockfp_kernel / panel_apply_blockfp_call (B4b), and
+//   _qr_blockfp_wavefront_kernel / qr_blockfp_wavefront_call (B5b): the
+//   Sameh-Kuck stages are disjoint pairs already, so B5b's wrapper gives
+//   the flat kernel the caller's stages with their item ends
+//   (qrd_blocked._wavefront_table) and counts its own launches.  Their
+//   bodies are cordic_givens.fused_rotate_block, fused_rotate_ctrl,
+//   fused_replay and fused_rotate_pairs.
 //
 // What it computes:
 //  * qr_blockfp: for each (k, j, col) step of a schedule read at run time
@@ -16,7 +20,8 @@
 //    step on rows k and j from column col, then the target lead forced to
 //    0, run in the stages of qrd_blocked.flat_stage_table (as qr_packed.cu
 //    does; the words are the step order's).  Equal to
-//    qr_blockfp_reference.
+//    qr_blockfp_reference; on B5b's stages, to
+//    qr_blockfp_wavefront_reference.
 //  * panel_factor_blockfp: the fused steps on an mr x pw panel, run in the
 //    stages of ops.panel_stages (qrd_blocked.levelize_steps, as
 //    panel_packed.cu runs them; the words are the step order's), writing
@@ -44,10 +49,10 @@
 //    tile is 128 x 256 int32 (128 KiB), under a block's 227 KB, so there
 //    is no device-memory mode; the wrapper caps tile_b to shared memory
 //    and refuses a larger one.  The stage loop is qr_packed.cu's
-//    (wf::run_item_stages on wf::BlockfpStage, B5b's pair step): one
-//    thread per pair vectors the lead once, then the matrix's threads
-//    replay the control word over the stage's live (pair, column) items;
-//    two barriers a stage.
+//    (wf::run_item_stages on wf::BlockfpStage): one thread per pair
+//    vectors the lead once, then the matrix's threads replay the control
+//    word over the stage's live (pair, column) items; two barriers a
+//    stage.
 //  * panel_factor_blockfp runs the panel's (4, S', P) stage table (pivot,
 //    target, column, step index; 2016 steps -> 335 stages a panel call at
 //    (1024, 64, 64), 11168 -> 1648 a TSQR call at (32, 4096, 32)) with
@@ -56,7 +61,10 @@
 //    flip/sig at the pair's step index, then the panel's threads spread
 //    over (pair, column) and replay it; two barriers a stage.  One block
 //    holds `tile_b` panels (blockDim.y) and their control words in shared
-//    memory; the wrapper caps tile_b.
+//    memory, the wrapper capping tile_b, or, for a panel beyond shared
+//    memory (tile_m 4096 at panel_n 16: 256 KiB), works on the panels in
+//    place in device memory with the control words in shared memory
+//    (kShared = false), as panel_packed.cu does.
 //  * panel_factor_blockfp and panel_apply_blockfp work in place on
 //    row-strided views of the (B, m, e) working buffer (batch stride sb,
 //    row stride ld, unit column stride), as panel_packed.cu does.
@@ -82,6 +90,7 @@
 #include "stage_loop.cuh"
 
 using bfp::i32;
+using bfp::microrotation_mask;
 using bfp::Params;
 
 __global__ void qr_blockfp_kernel(const i32* __restrict__ in, i32* out,
@@ -117,6 +126,11 @@ struct PanelBlockfpStage : wf::BlockfpStage {
   }
 };
 
+// kShared: the block's panels are copied into shared memory and back;
+// else the stages work on each panel where it lies (row stride ld, which
+// the wrapper keeps within int with the panel's rows).  The control words
+// are in shared memory either way.
+template <bool kShared>
 __global__ void panel_factor_blockfp_kernel(i32* P, long long sb, long long ld,
                                             int B, int mr, int pw,
                                             wf::Tables t, int S,
@@ -126,16 +140,31 @@ __global__ void panel_factor_blockfp_kernel(i32* P, long long sb, long long ld,
   const long long b = (long long)blockIdx.x * blockDim.y + threadIdx.y;
   const bool live = b < B;  // the ragged edge of the last block
   i32* src = P + (live ? b : 0) * sb;
-  i32* T = panel_smem32 + (long long)threadIdx.y * mr * pw;
-  i32* ctrl = panel_smem32 + (long long)blockDim.y * mr * pw +
+  i32* T = kShared ? panel_smem32 + (long long)threadIdx.y * mr * pw : src;
+  i32* ctrl = panel_smem32 + (kShared ? (long long)blockDim.y * mr * pw : 0) +
               (long long)threadIdx.y * t.P * 2;
-  if (live) bfp::copy_tile(T, pw, src, ld, mr, pw);
+  if (kShared && live) bfp::copy_tile(T, pw, src, ld, mr, pw);
   __syncthreads();
   const long long o = (live ? b : 0) * S;
-  const PanelBlockfpStage body{{T, pw, &u, ctrl}, t.tab + 3 * t.ts, t.ss,
-                               flip + o, sig + o};
+  const PanelBlockfpStage body{{T, kShared ? pw : (int)ld, &u, ctrl},
+                               t.tab + 3 * t.ts, t.ss, flip + o, sig + o};
   wf::run_stages(t, mr, pw, live, body);
-  if (live) bfp::copy_tile(src, ld, T, pw, mr, pw);
+  if (kShared && live) bfp::copy_tile(src, ld, T, pw, mr, pw);
+}
+
+template <bool kShared>
+static int factor_launch(dim3 grid, dim3 block, size_t smem,
+                         cudaStream_t stream, i32* P, long long sb,
+                         long long ld, int B, int mr, int pw,
+                         const wf::Tables& t, int S, i32* flip, i32* sig,
+                         const Params& u) {
+  cudaError_t err = cudaFuncSetAttribute(
+      panel_factor_blockfp_kernel<kShared>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  panel_factor_blockfp_kernel<kShared><<<grid, block, smem, stream>>>(
+      P, sb, ld, B, mr, pw, t, S, flip, sig, u);
+  return (int)cudaGetLastError();
 }
 
 // B4b's control table in shared memory: one record a pair of a stage.  x
@@ -147,23 +176,6 @@ __device__ __forceinline__ int2 apply_record(const wf::Tables& t, long long o,
   const bfp::u32 word = ((bfp::u32)__ldg(g + st) & 0x3FFFFFFFu) |
                         (bfp::u32)(__ldg(f + st) != 0) << 31;
   return make_int2(__ldg(t.tab + o) | __ldg(t.tab + t.ts + o) << 16, (int)word);
-}
-
-// microrotation() with the direction as a mask m (all ones where d_pos)
-// and its bit d = -m, without a select: x - ys - cy = x + ~ys + (1 - cy)
-// and x + ys + cy are x + (ys ^ m) + (cy ^ d), in wrapping arithmetic, and
-// the y update is the same with ~m; conventional: cy = cx = 0.  ys2 and
-// xs2 are y and x shifted by i - 1, whose low bit is the HUB carry (HUB
-// micro-rotation 0, whose carries are 1, passes ~0).
-template <bool kHub>
-__device__ __forceinline__ void microrotation_mask(i32& x, i32& y, i32 ys,
-                                                   i32 xs, i32 ys2, i32 xs2,
-                                                   i32 m) {
-  const i32 d = m & 1;
-  const i32 cy = kHub ? (ys2 ^ d) & 1 : d;
-  const i32 cx = kHub ? (xs2 ^ d ^ 1) & 1 : d ^ 1;
-  x = bfp::wrap_add(bfp::wrap_add(x, ys ^ m), cy);
-  y = bfp::wrap_add(bfp::wrap_add(y, xs ^ ~m), cx);
 }
 
 // K pairs of one stage replayed on one column (rows r at col[r * C]): the
@@ -317,21 +329,18 @@ int qr_blockfp_launch(const void* in, void* out, const void* tables, int B,
 int panel_factor_blockfp_launch(void* P, long long sb, long long ld, int B,
                                 int mr, int pw, const void* tables, int stages,
                                 int pairs, int S, void* flip, void* sig,
-                                int tile_b, int threads_x, int iters, int hub,
-                                int comp, void* stream) {
+                                int tile_b, int threads_x, int device_panel,
+                                int iters, int hub, int comp, void* stream) {
   const Params u = {iters, hub, comp};
   const wf::Tables t = {(const int*)tables, (long long)stages * pairs, pairs,
                         stages, pairs};
   const dim3 block(threads_x, tile_b);
   const dim3 grid((B + tile_b - 1) / tile_b);
-  const size_t smem = (size_t)tile_b * (mr * pw + 2 * pairs) * sizeof(i32);
-  cudaError_t err = cudaFuncSetAttribute(
-      panel_factor_blockfp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  panel_factor_blockfp_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      (i32*)P, sb, ld, B, mr, pw, t, S, (i32*)flip, (i32*)sig, u);
-  return (int)cudaGetLastError();
+  const size_t ctrl = (size_t)tile_b * 2 * pairs * sizeof(i32);
+  const size_t smem = (size_t)tile_b * mr * pw * sizeof(i32) + ctrl;
+  return (device_panel ? factor_launch<false> : factor_launch<true>)(
+      grid, block, device_panel ? ctrl : smem, (cudaStream_t)stream, (i32*)P,
+      sb, ld, B, mr, pw, t, S, (i32*)flip, (i32*)sig, u);
 }
 
 int panel_apply_blockfp_launch(void* P, long long sb, long long ld, int B,

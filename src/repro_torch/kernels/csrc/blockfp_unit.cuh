@@ -1,6 +1,7 @@
 // The int32 block-FP CORDIC Givens step as device functions: one function
 // per function of repro_torch/kernels/cordic_givens.py (the plain version),
-// and the tile copy of the block-FP kernels (blockfp.cu, wavefront.cu).
+// the tile copy of the block-FP kernels (blockfp.cu), and the K-chain
+// replay of the standalone rotator (rotator.cu).
 //
 // Hazards of C++ that XLA's int32 does not have, and what is done here:
 //  * Signed overflow is undefined behaviour in C++, while XLA's int32 adds,
@@ -79,6 +80,51 @@ __device__ __forceinline__ void microrotation(i32& x, i32& y, int i, bool d_pos,
   }
   x = xn;
   y = yn;
+}
+
+// microrotation() with the direction as a mask m (all ones where d_pos)
+// and its bit d = -m, without a select: x - ys - cy = x + ~ys + (1 - cy)
+// and x + ys + cy are x + (ys ^ m) + (cy ^ d), in wrapping arithmetic, and
+// the y update is the same with ~m; conventional: cy = cx = 0.  ys2 and
+// xs2 are y and x shifted by i - 1, whose low bit is the HUB carry (HUB
+// micro-rotation 0, whose carries are 1, passes ~0).
+template <bool kHub>
+__device__ __forceinline__ void microrotation_mask(i32& x, i32& y, i32 ys,
+                                                   i32 xs, i32 ys2, i32 xs2,
+                                                   i32 m) {
+  const i32 d = m & 1;
+  const i32 cy = kHub ? (ys2 ^ d) & 1 : d;
+  const i32 cx = kHub ? (xs2 ^ d ^ 1) & 1 : d ^ 1;
+  x = bfp::wrap_add(bfp::wrap_add(x, ys ^ m), cy);
+  y = bfp::wrap_add(bfp::wrap_add(y, xs ^ ~m), cx);
+}
+
+// K element pairs of one row pair turned by one control word as K
+// independent chains, which the compiler interleaves: micro-rotation i in
+// the direction of the mask dir(i, y[0]) (all ones where d_pos), shared by
+// the chains; the caller flips them first and compensates the gain after.
+// dir sees chain 0's y before the micro-rotation, so a chain 0 that is the
+// lead pair vectors as it goes (d_pos where its y is negative), and a
+// known sigma gives -((sigma >> i) & 1).  Micro-rotation 0 as in
+// blockfp.cu's replay_pairs: shift 0, HUB carries 1.
+template <bool kHub, int K, class Dir>
+__device__ __forceinline__ void turn_chains(i32 (&x)[K], i32 (&y)[K],
+                                            int iters, const Dir& dir) {
+  if (iters > 0) {
+    const i32 m = dir(0, y[0]);
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      microrotation_mask<kHub>(x[q], y[q], y[q], x[q], ~0, ~0, m);
+    }
+  }
+  for (int i = 1; i < iters; ++i) {
+    const i32 m = dir(i, y[0]);
+#pragma unroll
+    for (int q = 0; q < K; ++q) {
+      microrotation_mask<kHub>(x[q], y[q], y[q] >> i, x[q] >> i,
+                               y[q] >> (i - 1), x[q] >> (i - 1), m);
+    }
+  }
 }
 
 // The lead pair's vectoring in place: flip on x < 0, then iters

@@ -42,9 +42,12 @@
 //    (stage_loop.cuh) on each: one thread per pair vectors the lead once
 //    and writes the control word to shared memory and to flip/sig at the
 //    pair's step index, then the panel's threads spread over (pair,
-//    column) and replay it; two barriers a stage.  A panel is at most
-//    128 x 128 words (128 KiB) on the engine's routes, so one always fits;
-//    the wrapper caps tile_b.
+//    column) and replay it; two barriers a stage.  On the engine's default
+//    tiles (tile_m 128) a panel fits and the wrapper caps tile_b to shared
+//    memory; a taller panel (tile_m 4096 at panel_n 8: 256 KiB) stays in
+//    device memory, where the stages work on it in place through the L1
+//    and L2 caches (kShared = false; the control words stay in shared
+//    memory), as qr_packed.cu does with a tile beyond shared memory.
 //  * panel_apply: a block owns one matrix and `blockDim.x` (up to 32) of
 //    its trailing columns, which it reads once into shared memory and
 //    writes back once.  Its threads spread over (column, pair slot):
@@ -94,6 +97,11 @@ struct PanelStage {
   }
 };
 
+// kShared: the block's panels are copied into shared memory and back;
+// else the stages work on each panel where it lies (row stride ld, which
+// the wrapper keeps within int with the panel's rows).  The control words
+// are in shared memory either way.
+template <bool kShared>
 __global__ void panel_factor_kernel(i64* P, long long sb, long long ld, int B,
                                     int mr, int pw, wf::Tables t, int S,
                                     i64* __restrict__ flip,
@@ -102,16 +110,31 @@ __global__ void panel_factor_kernel(i64* P, long long sb, long long ld, int B,
   const long long b = (long long)blockIdx.x * blockDim.y + threadIdx.y;
   const bool live = b < B;  // the ragged edge of the last block
   i64* src = P + (live ? b : 0) * sb;
-  i64* T = panel_smem + (long long)threadIdx.y * mr * pw;
-  i64* ctrl = panel_smem + (long long)blockDim.y * mr * pw +
+  i64* T = kShared ? panel_smem + (long long)threadIdx.y * mr * pw : src;
+  i64* ctrl = panel_smem + (kShared ? (long long)blockDim.y * mr * pw : 0) +
               (long long)threadIdx.y * t.P * 2;
-  if (live) gru::copy_tile(T, pw, src, ld, mr, pw);
+  if (kShared && live) gru::copy_tile(T, pw, src, ld, mr, pw);
   __syncthreads();
   const long long o = (live ? b : 0) * S;
   wf::run_stages(t, mr, pw, live,
-                 PanelStage{T, pw, &u, ctrl, t.tab + 3 * t.ts, t.ss, flip + o,
-                            sig + o});
-  if (live) gru::copy_tile(src, ld, T, pw, mr, pw);
+                 PanelStage{T, kShared ? pw : (int)ld, &u, ctrl,
+                            t.tab + 3 * t.ts, t.ss, flip + o, sig + o});
+  if (kShared && live) gru::copy_tile(src, ld, T, pw, mr, pw);
+}
+
+template <bool kShared>
+static int factor_launch(dim3 grid, dim3 block, size_t smem,
+                         cudaStream_t stream, i64* P, long long sb,
+                         long long ld, int B, int mr, int pw,
+                         const wf::Tables& t, int S, i64* flip, i64* sig,
+                         const UnitParams& u) {
+  cudaError_t err = cudaFuncSetAttribute(
+      panel_factor_kernel<kShared>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  panel_factor_kernel<kShared><<<grid, block, smem, stream>>>(
+      P, sb, ld, B, mr, pw, t, S, flip, sig, u);
+  return (int)cudaGetLastError();
 }
 
 __global__ void panel_apply_kernel(i64* P, long long sb, long long ld, int mr,
@@ -160,9 +183,9 @@ extern "C" {
 int panel_factor_launch(void* P, long long sb, long long ld, int B, int mr,
                         int pw, const void* tables, int stages, int pairs,
                         int S, void* flip, void* sig, int tile_b,
-                        int threads_x, int man_bits, int exp_bits,
-                        long long bias, long long max_exp_raw, int N,
-                        int iters, int hub, int rne, int unbiased,
+                        int threads_x, int device_panel, int man_bits,
+                        int exp_bits, long long bias, long long max_exp_raw,
+                        int N, int iters, int hub, int rne, int unbiased,
                         int detect_identity, long long comp, int p,
                         void* stream) {
   const UnitParams u = {man_bits, exp_bits, bias, max_exp_raw, N, iters, hub,
@@ -171,14 +194,11 @@ int panel_factor_launch(void* P, long long sb, long long ld, int B, int mr,
                         stages, pairs};
   const dim3 block(threads_x, tile_b);
   const dim3 grid((B + tile_b - 1) / tile_b);
-  const size_t smem = (size_t)tile_b * (mr * pw + 2 * pairs) * sizeof(i64);
-  cudaError_t err = cudaFuncSetAttribute(
-      panel_factor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  panel_factor_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      (i64*)P, sb, ld, B, mr, pw, t, S, (i64*)flip, (i64*)sig, u);
-  return (int)cudaGetLastError();
+  const size_t ctrl = (size_t)tile_b * 2 * pairs * sizeof(i64);
+  const size_t smem = (size_t)tile_b * mr * pw * sizeof(i64) + ctrl;
+  return (device_panel ? factor_launch<false> : factor_launch<true>)(
+      grid, block, device_panel ? ctrl : smem, (cudaStream_t)stream, (i64*)P,
+      sb, ld, B, mr, pw, t, S, (i64*)flip, (i64*)sig, u);
 }
 
 int panel_apply_launch(void* P, long long sb, long long ld, int B, int mr,

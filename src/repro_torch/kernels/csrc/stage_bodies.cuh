@@ -1,10 +1,11 @@
 // The pair steps of the packed-word, int32 block-FP and complex stage
-// kernels, as bodies of a stage loop (stage_loop.cuh): the wavefront
-// kernels (wavefront.cu, B5b; complex_packed.cu, B7b) run them on
-// Sameh-Kuck stages with wf::run_stages, the flat kernels (qr_packed.cu,
-// B1, and B5a on the Sameh-Kuck stages; blockfp.cu, B2; complex_packed.cu,
-// B7a) on the levels of a step-serial schedule with wf::run_item_stages
-// below.  Both run the same arithmetic, so the words agree.
+// kernels, as bodies of a stage loop (stage_loop.cuh): the complex
+// wavefront kernel (complex_packed.cu, B7b) and the panel factorizations
+// run them with wf::run_stages, the flat kernels (qr_packed.cu, B1, and
+// B5a on the Sameh-Kuck stages; blockfp.cu, B2, and B5b on the Sameh-Kuck
+// stages; complex_packed.cu, B7a) on the levels of a step-serial schedule
+// or on the caller's stages with wf::run_item_stages below.  All run the
+// same arithmetic, so the words agree.
 #pragma once
 
 #include "blockfp_unit.cuh"

@@ -1,7 +1,7 @@
-// The stage loop shared by the wavefront kernels (wavefront.cu), the
-// complex kernels (complex_packed.cu), the lane kernels (packed_lanes.cu)
-// and the panel factorization (panel_packed.cu): every stage of a schedule
-// on a tile that one block holds, in shared memory or in device memory.
+// The stage loop shared by the complex wavefront kernel (complex_packed.cu),
+// the lane kernels (packed_lanes.cu) and the panel factorizations
+// (panel_packed.cu, blockfp.cu): every stage of a schedule on a tile that
+// one block holds, in shared memory or in device memory.
 //
 // A stage is a set of rotations on disjoint row pairs (a Sameh-Kuck stage,
 // a level of a levelized step-serial schedule, or a single step of one),

@@ -25,9 +25,9 @@ wrappers, launch counters and plain PyTorch versions.
   `panel_factor_blockfp_reference` and `panel_apply_blockfp_reference`,
   loops of `repro_torch.kernels.cordic_givens.fused_rotate_block`,
   `fused_rotate_ctrl` and `fused_replay`.
-* `qr_packed_wavefront_call` (B1's kernel, ``csrc/qr_packed.cu``, on the
-  caller's stages) and `qr_blockfp_wavefront_call` (``csrc/wavefront.cu``)
-  replace their namesakes of the JAX package: the
+* `qr_packed_wavefront_call` and `qr_blockfp_wavefront_call` (B1's and
+  B2's kernels, ``csrc/qr_packed.cu`` and ``csrc/blockfp.cu``, on the
+  caller's stages) replace their namesakes of the JAX package: the
   Sameh–Kuck wavefront, every pair of a stage rotated at once (their row
   pairs are disjoint), on packed words and on int32 block-FP significands.
   The schedule travels as (S, Pmax) stage tables padded with row ``m``
@@ -106,10 +106,10 @@ TILE_B = 1
 #: Threads per matrix of the flat kernels' stage loop at a batch that
 #: fills the card, by kernel: of 32 to 256 at tile_b 1, the fastest at the
 #: flat route's (8192, 32, 64) on an H100 (`_flat_threads`); the complex
-#: kernel's at (8192, 32, 64, 2); B5a's (B1's kernel on the Sameh–Kuck
-#: stages) at the wavefront path's (8192, 32, 64).
+#: kernel's at (8192, 32, 64, 2); B5a's and B5b's (B1's and B2's kernels
+#: on the Sameh–Kuck stages) at the wavefront path's (8192, 32, 64).
 FLAT_THREADS = {"qr_packed": 128, "qr_blockfp": 32, "qr_packed_complex": 256,
-                "qr_packed_wavefront": 128}
+                "qr_packed_wavefront": 128, "qr_blockfp_wavefront": 32}
 
 #: The most threads per matrix `_flat_threads` widens a small batch's
 #: blocks to: of 256, 512 and 1024, the fastest for B1 and B2 at
@@ -123,8 +123,9 @@ PANEL_TILE_B = 2
 
 #: Dynamic shared memory one block may use on Hopper (227 KB).  The packed
 #: flat, wavefront and complex kernels factorize a block's tiles beyond it
-#: in place in device memory; the panel factorizations and the block-FP
-#: kernels keep their tiles within it.
+#: in place in device memory, and the panel factorizations their panels
+#: (`_panel_tile`); the block-FP flat and wavefront kernel B2 keeps its
+#: tiles within it.
 MAX_SHARED_BYTES = 232448
 
 #: Launches of each CUDA kernel in this process (comparisons included);
@@ -251,20 +252,42 @@ def _block_shape(fn: str, tile_b, threads_x: int) -> int:
     return tile_b
 
 
-def _shared_tile_b(tile_b, fn: str, threads_x: int, tile_bytes: int,
-                   default: int) -> int:
-    """Tiles per block of a kernel that keeps them in shared memory:
-    ``default`` capped to `MAX_SHARED_BYTES` when the caller gives none; a
-    block of more than 1024 threads, or an explicit ``tile_b`` whose tiles
-    do not fit, raises ValueError."""
+def _shared_tile_b(tile_b, fn: str, threads_x: int, tile_bytes: int) -> int:
+    """Tiles per block of a kernel that keeps them in shared memory (B2,
+    and B5b on its kernel): `TILE_B` capped to `MAX_SHARED_BYTES` when the
+    caller gives none; a block of more than 1024 threads, or an explicit
+    ``tile_b`` whose tiles do not fit, raises ValueError."""
     if tile_b is None:
-        tile_b = max(1, min(default, MAX_SHARED_BYTES // tile_bytes))
+        tile_b = max(1, min(TILE_B, MAX_SHARED_BYTES // tile_bytes))
     tile_b = _block_shape(fn, tile_b, threads_x)
     if tile_b * tile_bytes > MAX_SHARED_BYTES:
         raise ValueError(f"{fn}: tile_b={tile_b} tiles of {tile_bytes} B need "
                          f"{tile_b * tile_bytes} B of shared memory (at most "
                          f"{MAX_SHARED_BYTES})")
     return tile_b
+
+
+def _panel_tile(fn: str, tile_b, threads_x: int, mr: int, pw: int, ld: int,
+                pairs: int, word_bytes: int):
+    """``(tile_b, device_panel)`` of a panel factorization (B3a, B4a) on
+    (mr, pw) panels of ``word_bytes`` words at row stride ``ld`` with
+    ``pairs`` control words a stage.  The panels and their control words
+    go to shared memory when ``tile_b`` of them fit `MAX_SHARED_BYTES`:
+    by default `PANEL_TILE_B`, capped to what fits.  Else the kernel works
+    on the panels where they lie in device memory, `PANEL_TILE_B` or the
+    caller's ``tile_b`` a block, with only the control words in shared
+    memory (``device_panel`` True).  A block of more than 1024 threads, or
+    a device-memory panel whose rows reach past the kernel's int row
+    offsets, raises ValueError."""
+    need = (mr * pw + 2 * pairs) * word_bytes
+    if tile_b is None:
+        tile_b = min(PANEL_TILE_B, MAX_SHARED_BYTES // need) or PANEL_TILE_B
+    tile_b = _block_shape(fn, tile_b, threads_x)
+    device_panel = tile_b * need > MAX_SHARED_BYTES
+    if device_panel and mr * ld >= 2 ** 31:
+        raise ValueError(f"{fn}: {mr} rows at row stride {ld} exceed the "
+                         f"kernel's int32 row offsets")
+    return tile_b, device_panel
 
 
 def _check_steps(steps, m: int, e: int):
@@ -326,7 +349,8 @@ def _card_threads(device: str) -> int:
 def _flat_threads(kernel: str, pairs: int, e: int, B: int, tile_b,
                   device: str) -> int:
     """Threads per matrix of the flat kernel ``kernel`` ('qr_packed',
-    'qr_blockfp', 'qr_packed_complex' or B5a's 'qr_packed_wavefront'): its
+    'qr_blockfp', 'qr_packed_complex', or B5a's 'qr_packed_wavefront' and
+    B5b's 'qr_blockfp_wavefront'): its
     `FLAT_THREADS`, doubled while the grid's threads
     still fit the card at once (`_card_threads`) — a batch too small to
     fill the card spreads each matrix over more threads rather than leave
@@ -519,7 +543,9 @@ def panel_factor_packed_call(P, piv, tgt, col, *, cfg: GivensConfig,
     tile_b : int, optional
         Panels per CUDA block; by default `PANEL_TILE_B`, capped so that
         the block's panels and control words fit in `MAX_SHARED_BYTES` of
-        shared memory, which an explicit one must not exceed (ValueError).
+        shared memory.  Panels that do not fit (tile_m 4096 at panel_n 8,
+        or an explicit ``tile_b`` too large) are factorized in place in
+        device memory instead (`_panel_tile`); the words are the same.
 
     Returns
     -------
@@ -544,8 +570,9 @@ def panel_factor_packed_call(P, piv, tgt, col, *, cfg: GivensConfig,
     S = len(rows[0])
     stages, pairs = table.shape[1:]
     threads_x = _stage_threads(pairs, pw)
-    tile_b = _shared_tile_b(tile_b, "panel_factor_packed_call", threads_x,
-                            (mr * pw + 2 * pairs) * 8, PANEL_TILE_B)
+    tile_b, device_panel = _panel_tile("panel_factor_packed_call", tile_b,
+                                       threads_x, mr, pw, P.stride(1), pairs,
+                                       8)
     flip = torch.empty((B, S), dtype=torch.int64, device=P.device)
     sig = torch.empty_like(flip)
     if B == 0 or S == 0:
@@ -553,7 +580,7 @@ def panel_factor_packed_call(P, piv, tgt, col, *, cfg: GivensConfig,
     err = _lib("panel_packed").panel_factor_launch(
         P.data_ptr(), P.stride(0), P.stride(1), B, mr, pw, table.data_ptr(),
         stages, pairs, S, flip.data_ptr(), sig.data_ptr(), tile_b, threads_x,
-        *_unit_args(cfg), _stream(P))
+        int(device_panel), *_unit_args(cfg), _stream(P))
     _check_launch("panel_packed", err)
     PANEL_FACTOR_LAUNCHES += 1
     return P, flip, sig
@@ -730,8 +757,6 @@ def qr_blockfp_call(X, *, iters: int, hub: bool, steps,
     args = _blockfp_args(iters, hub)
     if _check_operand("qr_blockfp_call", X, dtype=torch.int32):
         return qr_blockfp_reference(X, iters=iters, hub=hub, steps=steps)
-    if not X.is_contiguous():
-        raise ValueError("qr_blockfp_call: expected a contiguous tensor")
     B, m, e = X.shape
     table = _flat_stage_table(steps, m, e, str(X.device))
     threads_x = _flat_threads("qr_blockfp", table.shape[2], e, B, tile_b,
@@ -739,14 +764,19 @@ def qr_blockfp_call(X, *, iters: int, hub: bool, steps,
     return _qr_blockfp_launch(X, table, args, tile_b, threads_x)
 
 
-def _qr_blockfp_launch(X, table, args, tile_b, threads_x: int):
-    """B2 on a CUDA tensor, as `_qr_packed_launch`; ``args`` are
-    `_blockfp_args`."""
-    global QR_BLOCKFP_LAUNCHES
+def _qr_blockfp_launch(X, table, args, tile_b, threads_x: int,
+                       kernel: str = "qr_blockfp"):
+    """B2's kernel on a CUDA tensor, as `_qr_packed_launch`; ``args`` are
+    `_blockfp_args`.  ``kernel`` is the wrapper the launch counts for:
+    'qr_blockfp' (B2) or 'qr_blockfp_wavefront' (B5b, on
+    `_wavefront_table`).  The tiles stay in shared memory: a ``tile_b``
+    whose tiles and control words do not fit raises ValueError."""
+    fn = f"{kernel}_call"
+    if not X.is_contiguous():
+        raise ValueError(f"{fn}: expected a contiguous tensor")
     B, m, e = X.shape
     stages, pairs = table.shape[1:]
-    tile_b = _shared_tile_b(tile_b, "qr_blockfp_call", threads_x,
-                            (m * e + 2 * pairs) * 4, TILE_B)
+    tile_b = _shared_tile_b(tile_b, fn, threads_x, (m * e + 2 * pairs) * 4)
     out = torch.empty_like(X)
     if B == 0:
         return out
@@ -754,7 +784,7 @@ def _qr_blockfp_launch(X, table, args, tile_b, threads_x: int):
         X.data_ptr(), out.data_ptr(), table.data_ptr(), B, m, e, stages,
         pairs, tile_b, threads_x, *args, _stream(X))
     _check_launch("blockfp", err)
-    QR_BLOCKFP_LAUNCHES += 1
+    globals()[f"{kernel.upper()}_LAUNCHES"] += 1
     return out
 
 
@@ -775,7 +805,9 @@ def panel_factor_blockfp_call(X, piv, tgt, col, *, iters: int, hub: bool,
     control words, in step order, for `panel_apply_blockfp_call`.
 
     The kernel runs the steps in the stages of `levelize_steps`, as
-    `panel_factor_packed_call` does; the words equal the step order's.
+    `panel_factor_packed_call` does, its panels in shared memory or, when
+    they do not fit, in device memory (`_panel_tile`); the words equal the
+    step order's.
     """
     global PANEL_FACTOR_BLOCKFP_LAUNCHES
     args = _blockfp_args(iters, hub)
@@ -790,8 +822,9 @@ def panel_factor_blockfp_call(X, piv, tgt, col, *, iters: int, hub: bool,
     S = len(rows[0])
     stages, pairs = table.shape[1:]
     threads_x = _stage_threads(pairs, pw)
-    tile_b = _shared_tile_b(tile_b, "panel_factor_blockfp_call", threads_x,
-                            (mr * pw + 2 * pairs) * 4, PANEL_TILE_B)
+    tile_b, device_panel = _panel_tile("panel_factor_blockfp_call", tile_b,
+                                       threads_x, mr, pw, X.stride(1), pairs,
+                                       4)
     flip = torch.empty((B, S), dtype=torch.int32, device=X.device)
     sig = torch.empty_like(flip)
     if B == 0 or S == 0:
@@ -799,7 +832,7 @@ def panel_factor_blockfp_call(X, piv, tgt, col, *, iters: int, hub: bool,
     err = _lib("blockfp").panel_factor_blockfp_launch(
         X.data_ptr(), X.stride(0), X.stride(1), B, mr, pw, table.data_ptr(),
         stages, pairs, S, flip.data_ptr(), sig.data_ptr(), tile_b, threads_x,
-        *args, _stream(X))
+        int(device_panel), *args, _stream(X))
     _check_launch("blockfp", err)
     PANEL_FACTOR_BLOCKFP_LAUNCHES += 1
     return X, flip, sig
@@ -894,8 +927,8 @@ def _panel_apply_blockfp_launch(T, table, flip, sig, args, cols: int,
 
 
 # ---------------------------------------------------------------------------
-# The Sameh–Kuck wavefront (csrc/wavefront.cu) and the complex datapath
-# (csrc/complex_packed.cu)
+# The Sameh–Kuck wavefront (B1's and B2's kernels on the caller's stages)
+# and the complex datapath (csrc/complex_packed.cu)
 # ---------------------------------------------------------------------------
 def _stage_key(piv, tgt, col):
     """Three (S, Pmax) stage tables (numpy arrays, tensors or nested
@@ -907,9 +940,10 @@ def _stage_key(piv, tgt, col):
 
 @lru_cache(maxsize=SCHEDULE_CACHE_SIZE)
 def _wavefront_table(key, m: int, e: int, device: str):
-    """B5a's (4, S, Pmax) int32 table on ``device``: the validated stage
-    tables behind `_stage_key` (`_stage_table`) and, as row 3, each pair's
-    item end (`_with_item_ends`, the rule of `flat_stage_table`)."""
+    """B5a's and B5b's (4, S, Pmax) int32 table on ``device``: the
+    validated stage tables behind `_stage_key` (`_stage_table`) and, as row
+    3, each pair's item end (`_with_item_ends`, the rule of
+    `flat_stage_table`)."""
     return torch.tensor(_with_item_ends(_stage_table(key, m, e, "cpu").numpy(),
                                         m, e), device=device)
 
@@ -1157,31 +1191,22 @@ def qr_blockfp_wavefront_call(X, piv, tgt, col, *, iters: int, hub: bool,
     -------
     (B, m, e) int32 — bit-identical to `qr_blockfp_call` on the flattened
     stage schedule.
+
+    The kernel is B2's (``csrc/blockfp.cu``) on the caller's stages with
+    each pair's item end (`_wavefront_table`, cached), as
+    `qr_packed_wavefront_call` runs B1's.
     """
-    global QR_BLOCKFP_WAVEFRONT_LAUNCHES
     _check_layout(table_layout)
     args = _blockfp_args(iters, hub)
     if _check_operand("qr_blockfp_wavefront_call", X, dtype=torch.int32):
         return qr_blockfp_wavefront_reference(X, piv, tgt, col, iters=iters,
                                               hub=hub)
-    if not X.is_contiguous():
-        raise ValueError("qr_blockfp_wavefront_call: expected a contiguous "
-                         "tensor")
     B, m, e = X.shape
-    table = _stage_table(_stage_key(piv, tgt, col), m, e, str(X.device))
-    S, pairs = table.shape[1:]
-    threads_x = _stage_threads(pairs, e)
-    tile_b = _shared_tile_b(tile_b, "qr_blockfp_wavefront_call", threads_x,
-                            m * e * 4 + pairs * 8, TILE_B)
-    out = torch.empty_like(X)
-    if B == 0:
-        return out
-    err = _lib("wavefront").qr_blockfp_wavefront_launch(
-        X.data_ptr(), out.data_ptr(), table.data_ptr(), B, m, e, S, pairs,
-        tile_b, threads_x, *args, _stream(X))
-    _check_launch("wavefront", err)
-    QR_BLOCKFP_WAVEFRONT_LAUNCHES += 1
-    return out
+    table = _wavefront_table(_stage_key(piv, tgt, col), m, e, str(X.device))
+    threads_x = _flat_threads("qr_blockfp_wavefront", table.shape[2], e, B,
+                              tile_b, str(X.device))
+    return _qr_blockfp_launch(X, table, args, tile_b, threads_x,
+                              "qr_blockfp_wavefront")
 
 
 def _check_pairs(fn: str, P, pair: str = "(re, im)",

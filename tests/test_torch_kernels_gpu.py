@@ -10,6 +10,7 @@ skip on a machine without CUDA (the `cuda` fixture decides, at run time).
 Run them on a GPU host with ``python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
 The same cases run in ``chip_smoke.py``, whose helpers build the inputs.
 """
+import itertools
 import os
 import sys
 
@@ -28,6 +29,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import qrd_blocked as qb  # noqa: E402
 from repro_torch.qrd import QRDEngine  # noqa: E402
 from repro_torch.qrd.rls import RLSState  # noqa: E402
+from repro_torch.qrd.tiled import tsqr_host_reference  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -144,7 +146,7 @@ def test_panel_route_through_ops_equals_flat(cuda):
 def test_panel_factor_keeps_panels_in_shared_memory(cuda, monkeypatch):
     """The panel factorization's default tile_b fits its panels and their
     control words in shared memory, and a tile_b whose panels do not fit
-    raises."""
+    runs them in device memory, with the same words."""
     cfg = CONFIGS[0]
     P = chip_smoke.encoded_words(cfg, 5, 12, 6, False, np.random.default_rng(12),
                                  cuda)
@@ -154,8 +156,8 @@ def test_panel_factor_keeps_panels_in_shared_memory(cuda, monkeypatch):
     monkeypatch.setattr(qb, "PANEL_TILE_B", 4)
     chip_smoke.check_panel_sweep(P, cfg, 6, 6)         # default capped to 2
     chip_smoke.check_panel_sweep(P, cfg, 6, 6, tile_b=2)
-    with pytest.raises(ValueError, match="shared memory"):
-        qb.panel_factor_packed_call(P.clone(), piv, tgt, col, cfg=cfg, tile_b=3)
+    assert qb._panel_tile("", 3, 64, 12, 6, 6, pairs, 8) == (3, True)
+    chip_smoke.check_panel_sweep(P, cfg, 6, 6, tile_b=3)  # device memory
 
 
 @pytest.mark.parametrize("hub,pw", [(False, 3), (True, 8)],
@@ -254,9 +256,10 @@ def test_blockfp_panel_kernels_bit_equal_to_plain_versions(cuda, hub, iters):
 
 
 def test_blockfp_kernels_keep_tiles_in_shared_memory(cuda, monkeypatch):
-    """B2 and B4a cap their default tile_b to shared memory and raise on an
-    explicit tile_b whose tiles (B2: and their stage's control words) do
-    not fit."""
+    """B2 and B4a cap their default tile_b to shared memory; on an explicit
+    tile_b whose tiles and their stage's control words do not fit, B2 (and
+    B5b, on its kernel) raises and B4a runs its panels in device memory,
+    with the same words."""
     rng = np.random.default_rng(12)
     X = chip_smoke.bfp_words(5, 12, 18, rng, cuda)
     pairs = qb.flat_stage_table(givens_schedule(12, 6), 12, 18).shape[2]
@@ -269,9 +272,18 @@ def test_blockfp_kernels_keep_tiles_in_shared_memory(cuda, monkeypatch):
     piv, tgt, col = ops.panel_steps(12, 6)
     monkeypatch.setattr(qb, "MAX_SHARED_BYTES", 2 * 12 * 6 * 4)
     chip_smoke.check_bfp_panel_sweep(P, True, 24, 6, 6)    # default tile_b: 2
+    want = qb.panel_factor_blockfp_reference(P, piv, tgt, col, iters=24,
+                                             hub=True)
+    got = qb.panel_factor_blockfp_call(P.clone(), piv, tgt, col, iters=24,
+                                       hub=True, tile_b=3)  # device memory
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    tabs = chip_smoke.stage_tables(12, 6)
+    pairs = qb._wavefront_table(qb._stage_key(*tabs), 12, 18,
+                                str(cuda)).shape[2]
+    monkeypatch.setattr(qb, "MAX_SHARED_BYTES", 2 * (12 * 18 + 2 * pairs) * 4)
     with pytest.raises(ValueError, match="shared memory"):
-        qb.panel_factor_blockfp_call(P.clone(), piv, tgt, col, iters=24,
-                                     hub=True, tile_b=3)
+        qb.qr_blockfp_wavefront_call(X, *tabs, iters=24, hub=True, tile_b=3)
 
 
 @pytest.mark.parametrize("hub", [False, True], ids=["conv", "hub"])
@@ -378,6 +390,30 @@ def test_flat_kernels_on_flattened_stages_equal_wavefront(cuda, hub):
                                                          hub=hub))
 
 
+@pytest.mark.parametrize("hub", [False, True], ids=["conv", "hub"])
+def test_blockfp_wavefront_on_flat_kernel(cuda, hub):
+    """B5b runs B2's kernel on the caller's Sameh–Kuck stages with their
+    item ends: on a ragged batch of 5 at the default tile_b and at 2 and 4,
+    at 32 x 32 with Q and on the solve's 32 x (16 + 1), bit-equal to its
+    plain version and to B2 on the flattened stages; one B5b launch a call
+    and none of B2's."""
+    rng = np.random.default_rng(170 + hub)
+    kw = dict(iters=24, hub=hub)
+    for m, n, e in ((32, 32, 64), (32, 16, 17)):
+        tabs = chip_smoke.stage_tables(m, n)
+        X = chip_smoke.bfp_words(5, m, e, rng, cuda, edge=hub)
+        want = qb.qr_blockfp_wavefront_reference(X, *tabs, **kw)
+        assert torch.equal(qb.qr_blockfp_call(
+            X, steps=chip_smoke.flat_order(m, n), **kw), want)
+        for tile_b in (None, 2, 4):
+            before = (qb.QR_BLOCKFP_WAVEFRONT_LAUNCHES, qb.QR_BLOCKFP_LAUNCHES)
+            got = qb.qr_blockfp_wavefront_call(X, *tabs, tile_b=tile_b, **kw)
+            torch.cuda.synchronize()
+            assert (qb.QR_BLOCKFP_WAVEFRONT_LAUNCHES,
+                    qb.QR_BLOCKFP_LAUNCHES) == (before[0] + 1, before[1])
+            assert torch.equal(got, want), (m, n, tile_b)
+
+
 def test_flat_kernels_widen_blocks_for_a_small_batch(cuda):
     """A batch too small to fill the card runs more threads a matrix
     (`qrd_blocked._flat_threads`); the words equal those of the narrow
@@ -413,7 +449,7 @@ def test_flat_kernels_widen_blocks_for_a_small_batch(cuda):
 
 
 # ---------------------------------------------------------------------------
-# the Sameh–Kuck wavefront (csrc/wavefront.cu) and the complex datapath
+# the Sameh–Kuck wavefront (B1's and B2's kernels) and the complex datapath
 # (csrc/complex_packed.cu)
 # ---------------------------------------------------------------------------
 WF_SHAPES = ((4, 4, True), (6, 3, True), (3, 6, True), (2, 3, False),
@@ -797,6 +833,58 @@ def test_rotator_kernels_bit_equal_to_plain_versions(cuda, hub, iters):
         _rotator_launches()
 
 
+def _fused_views(X, device):
+    """The (B, W) row pairs of X as the fused kernel may get them: the
+    contiguous rows, and copies seen through views whose base (offset by
+    one word) or row stride (W + 1) is not 16-byte aligned."""
+    _, B, W = X.shape
+    Z = torch.zeros((2, B, W + 5), dtype=torch.int32, device=device)
+    Z[..., 1:1 + W] = X
+    V = torch.zeros((2, B, W + 1), dtype=torch.int32, device=device)
+    V[..., :W] = X
+    return {"rows": (X[0], X[1]), "offset base": (Z[0, :, 1:1 + W],
+                                                  Z[1, :, 1:1 + W]),
+            "odd stride": (V[0, :, :W], V[1, :, :W])}
+
+
+@pytest.mark.parametrize("iters", chip_smoke.ROT_ITERS)
+@pytest.mark.parametrize("hub", [False, True], ids=["conv", "hub"])
+def test_fused_kernel_layouts_bit_equal(cuda, hub, iters):
+    """B6c bit-equal to `cg.fused_reference` on every (B, W) of
+    `ROT_BATCHES` x `ROT_WIDTHS`, random and edge words (`ROT_EDGE`),
+    through its wrapper and at every layout of `cg.FUSED_LAYOUTS` that
+    takes the row (32 threads a row in several tiles where W exceeds one),
+    on contiguous rows (16-byte vectors where W is a multiple of 4) and on
+    row views whose base or row stride is not 16-byte aligned (single
+    words); one launch a call."""
+    rng = np.random.default_rng(160 + iters + hub)
+    kw = dict(iters=iters, hub=hub)
+    args = cg._rotator_args(iters, hub)
+    for B, W in itertools.product(chip_smoke.ROT_BATCHES,
+                                  chip_smoke.ROT_WIDTHS):
+        layouts = [(T, K) for T, K in cg.FUSED_LAYOUTS
+                   if W <= T * K or T == 32]
+        for edge in (False, True):
+            X = chip_smoke.rotator_rows(B, W, rng, cuda, edge)
+            want = cg.fused_reference(X[0], X[1], **kw)
+            for view, (x, y) in _fused_views(X, cuda).items():
+                out = torch.empty_like(x)
+                assert cg._fused_vectors((x, y, out, out)) == (
+                    view == "rows" and W % 4 == 0)
+                calls = [lambda: cg.fused_call(x, y, **kw)] + [
+                    lambda T=T, K=K: cg._fused_launch(x, y, args, T, K)
+                    for T, K in layouts]
+                for call in calls:
+                    before = cg.FUSED_LAUNCHES
+                    got = call()
+                    torch.cuda.synchronize()
+                    assert cg.FUSED_LAUNCHES == before + 1
+                    for g, w in zip(got, want):
+                        assert torch.equal(g, w), (B, W, edge, view)
+    with pytest.raises(ValueError, match="layout"):
+        cg._fused_launch(X[0], X[1], args, 16, 8)        # W 1025 > 16 x 8
+
+
 def test_rotator_empty_operands(cuda):
     """B = 0 launches nothing; rows of one element launch the vectoring
     kernel and no rotation (its operand is (B, 0))."""
@@ -950,3 +1038,92 @@ def test_qr_cordic_overrides_on_gpu_equal_cpu(cuda):
     assert torch.equal(Qg.cpu(), Qc) and torch.equal(Rg.cpu(), Rc)
     Qp, _ = qr_cordic(torch.tensor(A, device=cuda), unit, None, None)
     assert Qp is not None and not torch.equal(Qp.cpu(), Qc)
+
+
+# ---------------------------------------------------------------------------
+# Panels beyond a block's shared memory: the panel factors B3a and B4a work
+# on them in device memory
+# ---------------------------------------------------------------------------
+_TALL_HOST = {}
+
+
+def _tall_host_tree(lane, A, i):
+    """`tsqr_host_reference` of matrix ``i`` of `chip_smoke.tall_operand`
+    on `chip_smoke.tall_node_qr`, cached across the tests."""
+    if (lane, i) not in _TALL_HOST:
+        _TALL_HOST[lane, i] = tsqr_host_reference(
+            A[i], chip_smoke.tall_node_qr(lane), chip_smoke.TALL_TILE_M)
+    return _TALL_HOST[lane, i]
+
+
+@pytest.mark.parametrize("compute_q", [True, False], ids=["q", "r-only"])
+@pytest.mark.parametrize("lane", ["packed", "blockfp"])
+def test_tsqr_route_at_tile_m_4096(cuda, lane, compute_q):
+    """The TSQR route at tile_m 4096 (packed panel_n 8, block-FP panel_n
+    16), whose leaf panels exceed a block's shared memory, on a batch of 2
+    8192 x 32 matrices: R bit-equal to the host tree, Q within 1e-12 of it
+    (the TSQR paths' limit)."""
+    A = torch.tensor(chip_smoke.tall_operand(), device=cuda)
+    eng = chip_smoke.lane_engine(lane, cuda, tiling="tsqr",
+                                 tile_m=chip_smoke.TALL_TILE_M,
+                                 panel_n=chip_smoke.TALL_PANEL_N[lane])
+    Q, R = eng(A, compute_q=compute_q)
+    torch.cuda.synchronize()
+    B, _, n = A.shape
+    assert R.shape == (B, n, n)
+    assert (Q is None) == (not compute_q)
+    for i in range(B):
+        Qr, Rr = _tall_host_tree(lane, A, i)
+        assert torch.equal(R[i].view(torch.int64), Rr.view(torch.int64))
+        if compute_q:
+            assert (Q[i] - Qr).abs().max().item() <= 1e-12
+
+
+#: (mr, nc) of the panel factors' device-memory mode: a panel with more
+#: rows than columns, a TSQR tree node's first panel, and one with more
+#: columns than rows.
+DEVICE_PANELS = ((12, 6), (64, 8), (5, 9))
+
+
+@pytest.mark.parametrize("lane", ["packed", "blockfp"])
+@pytest.mark.parametrize("mr,nc", DEVICE_PANELS)
+def test_panel_factors_in_device_memory(cuda, monkeypatch, lane, mr, nc):
+    """B3a and B4a with their panels in device memory (forced by lowering
+    `MAX_SHARED_BYTES` below one panel) on a strided view of a wider
+    buffer, at the default tile_b and at 1 and 3 (ragged): the words and
+    control words bit-equal to the shared-memory mode's and the plain
+    version's, the buffer untouched outside the panel; one launch each."""
+    rng = np.random.default_rng(150 + mr + nc)
+    piv, tgt, col = ops.panel_steps(mr, nc)
+    if lane == "packed":
+        cfg = CONFIGS[2]
+        W = chip_smoke.encoded_words(cfg, 5, mr + 2, nc + 3, False, rng, cuda)
+        kw = dict(cfg=cfg)
+        call, ref = qb.panel_factor_packed_call, qb.panel_factor_packed_reference
+        count, word = "PANEL_FACTOR_LAUNCHES", 8
+    else:
+        W = chip_smoke.bfp_words(5, mr + 2, nc + 3, rng, cuda, edge=True)
+        kw = dict(iters=24, hub=True)
+        call = qb.panel_factor_blockfp_call
+        ref = qb.panel_factor_blockfp_reference
+        count, word = "PANEL_FACTOR_BLOCKFP_LAUNCHES", 4
+    want = ref(W[:, 2:, 1:1 + nc], piv, tgt, col, **kw)
+    keep = W.clone()
+    keep[:, 2:, 1:1 + nc] = want[0]
+    pairs = ops.panel_stages(mr, nc)[1].shape[1]
+    threads = qb._stage_threads(pairs, nc)
+    full = qb.MAX_SHARED_BYTES
+    for device in (False, True):
+        monkeypatch.setattr(qb, "MAX_SHARED_BYTES",
+                            (mr * nc + 2 * pairs) * word - 1 if device else full)
+        for tile_b in (None, 1, 3):
+            assert qb._panel_tile("", tile_b, threads, mr, nc, W.stride(1),
+                                  pairs, word)[1] == device
+            X = W.clone()
+            before = getattr(qb, count)
+            got = call(X[:, 2:, 1:1 + nc], piv, tgt, col, tile_b=tile_b, **kw)
+            torch.cuda.synchronize()
+            assert getattr(qb, count) == before + 1
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (device, tile_b)
+            assert torch.equal(X, keep)

@@ -20,6 +20,9 @@ JAX package on the CPU.
   significands.
 * The panel factor's and apply's cached stage tables come from one
   levelization of the panel's rows.
+* The panel factors keep their panels in shared memory on the engine's
+  default tiles and work on a panel beyond it in device memory
+  (`qrd_blocked._panel_tile`), at its boundary.
 
 Inputs are made with numpy from a seed; every JAX call runs once, in a
 module-scoped fixture.
@@ -219,3 +222,37 @@ def test_blockfp_panel_apply_stage_order_equals_step_order(mr, nc, hub):
                                             flip[:, order], sig[:, order], **kw)
     assert torch.equal(got, want)
 
+
+#: (lane, word bytes, panel_n) of the panel factors B3a and B4a at
+#: tile_m 4096, where a panel exceeds a block's shared memory.
+TALL_LANES = [("packed", 8, 8), ("blockfp", 4, 16)]
+
+
+@pytest.mark.parametrize("lane,word,pw", TALL_LANES)
+def test_panel_factor_tile_mode_at_its_boundary(lane, word, pw):
+    """`_panel_tile`: a (4096, pw) panel (262272 B with its control
+    words; the parent raised ValueError) goes to device memory at the
+    default tile_b and at an explicit one; the tallest panel that fits one
+    block (3630 rows) stays in shared memory, one panel a block, and one
+    row more goes to device memory; the engine's default tiles (TSQR
+    leaves of 128 rows and tree nodes of 64, panel_n 8, and the panel
+    route's 64-row panels) keep `PANEL_TILE_B` panels in shared memory."""
+    fn = f"panel_factor_{lane}_call"
+
+    def mode(mr, pw, tile_b=None):
+        piv, tgt, _ = tops.panel_steps(mr, pw)
+        pairs = tqb._panel_levels((tuple(piv.tolist()), tuple(tgt.tolist())),
+                                  mr).shape[2]
+        return tqb._panel_tile(fn, tile_b, tqb._stage_threads(pairs, pw), mr,
+                               pw, pw + mr, pairs, word)
+
+    pb = tqb.PANEL_TILE_B
+    assert (4096 * pw + 2 * pw) * word > tqb.MAX_SHARED_BYTES
+    assert mode(4096, pw) == (pb, True)
+    assert mode(4096, pw, 1) == (1, True)
+    assert (3630 * pw + 2 * pw) * word == tqb.MAX_SHARED_BYTES
+    assert mode(3630, pw) == (1, False)
+    assert mode(3631, pw) == (pb, True)
+    for mr in (128, 64):
+        assert mode(mr, 8) == (pb, False)
+        assert mode(mr, 8, 1) == (1, False)

@@ -196,6 +196,21 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         tops.givens_rotate_rows_fused(x, x, iters=31)
 
 
+def test_fused_layout_covers_each_row_width():
+    """The fused kernel's layout (`_fused_layout`): one thread a row of 8
+    or fewer, 8 columns a thread, the fewest threads that cover the row up
+    to a warp (wider rows take several tiles), always a compiled one."""
+    assert tcg._fused_layout(8) == tcg._fused_layout(1) == (1, 8)
+    assert tcg._fused_layout(9) == (2, 8)
+    assert tcg._fused_layout(128) == (16, 8)
+    assert tcg._fused_layout(129) == tcg._fused_layout(1025) == (32, 8)
+    for L in range(1, 600):
+        T, K = tcg._fused_layout(L)
+        assert (T, K) in tcg.FUSED_LAYOUTS
+        assert L <= T * K or T == 32
+        assert T == 1 or L > T * K // 2
+
+
 def test_empty_operands():
     """B = 0 and rows of one element (rotation gets a (B, 0) operand)."""
     for B, W in ((0, 4), (0, 1), (3, 1)):

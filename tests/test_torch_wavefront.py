@@ -124,13 +124,28 @@ def test_kernel_stage_table_checks_pairs():
             tqb._stage_table(tqb._stage_key(*tables), m, e, "cpu")
 
 
-@pytest.mark.parametrize("m,n", [(32, 32), (9, 7), (6, 3), (3, 6)])
-def test_packed_wavefront_item_ends(m, n):
-    """B5a's table (`_wavefront_table`): the caller's Sameh–Kuck stages
-    and, as row 3, each pair's item end by `flat_stage_table`'s rule, a
-    padded pair owning no item: the whole table is the one the flat kernel
-    B1 runs on the flattened stages."""
-    e = n + m
+#: (m, n, e) of the wavefront tables, which both lanes share: the words
+#: with Q (32 x 32 is the card's path on both lanes), and the block-FP
+#: lane's other cases: its plain-version shapes (5 x 4 with Q, 2 x 3
+#: without, 16 x 16 with Q) and the solves' [A | b] (6 x 3 here, 32 x 16
+#: on the card).
+ITEM_END_SHAPES = [pytest.param(32, 32, 64, id="32-32"),
+                   pytest.param(9, 7, 16, id="9-7"),
+                   pytest.param(6, 3, 9, id="6-3"),
+                   pytest.param(3, 6, 9, id="3-6"),
+                   pytest.param(5, 4, 9, id="blockfp-5-4"),
+                   pytest.param(2, 3, 3, id="blockfp-2-3-r-only"),
+                   pytest.param(6, 3, 4, id="blockfp-solve-6-3"),
+                   pytest.param(32, 16, 17, id="blockfp-solve-32-16"),
+                   pytest.param(16, 16, 32, id="blockfp-16-16")]
+
+
+@pytest.mark.parametrize("m,n,e", ITEM_END_SHAPES)
+def test_packed_wavefront_item_ends(m, n, e):
+    """B5a's and B5b's table (`_wavefront_table`): the caller's Sameh–Kuck
+    stages and, as row 3, each pair's item end by `flat_stage_table`'s
+    rule, a padded pair owning no item: the whole table is the one the
+    flat kernels B1 and B2 run on the flattened stages."""
     piv, tgt, col = tops._stage_tables(tq.sameh_kuck_schedule(m, n), m)
     table = tqb._wavefront_table(tqb._stage_key(piv, tgt, col), m, e,
                                  "cpu").numpy()

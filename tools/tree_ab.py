@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The block-FP panel kernels B4a and B4b and the packed wavefront B5a of
-one tree, timed with this checkout's ``chip_smoke.py`` helpers on one GPU.
+"""The block-FP panel kernels B4a and B4b, the wavefronts B5a and B5b and
+the rotator's fused kernel B6c of one tree, timed with this checkout's
+``chip_smoke.py`` helpers on one GPU.
 
     python3 tools/tree_ab.py TREE [--block-grid]
 
@@ -13,8 +14,10 @@ only (`chip_smoke.panel_replay_phase`, median of 10; with
 ``--block-grid`` B4b also at 1, 2, 4 and 8 threads a column, for a tree
 that has `qrd_blocked._panel_apply_blockfp_launch`), then B5a beside B1
 on the same words at (8192, 32, 64) and, tiles in device memory, at
-(132, 128, 256) (two medians of 5 each).  Run it on two trees in turns
-(parent, change, change, parent) in one call to compare them.
+(132, 128, 256), B5b beside B2 at (8192, 32, 64), and B6c through its
+wrapper at the row API's full shapes (two medians of 5 each).  Run it on
+two trees in turns (parent, change, change, parent) in one call to compare
+them.
 """
 import os
 import sys
@@ -27,6 +30,7 @@ sys.path.insert(0, os.path.join(TREE, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import cordic_givens as cg  # noqa: E402
 from repro_torch.kernels import qrd_blocked as qb  # noqa: E402
 from repro_torch.qrd import tiled  # noqa: E402,F401
 
@@ -40,7 +44,7 @@ def main():
     print(f"tree {sys.argv[1]}: {qb.__file__}", flush=True)
     if not torch.cuda.is_available():
         sys.exit("tree_ab: no CUDA device")
-    _build.build(["blockfp", "qr_packed", "panel_packed", "wavefront"])
+    _build.build(["blockfp", "qr_packed", "panel_packed", "rotator"])
     dev = torch.device("cuda")
     paths = {}
     for label, A, kw, work in (
@@ -68,6 +72,24 @@ def main():
         print(f"ab B5a at {label}: {ms['wavefront'][0]:.3f}, "
               f"{ms['wavefront'][1]:.3f} ms; B1 {ms['flat'][0]:.3f}, "
               f"{ms['flat'][1]:.3f} (median of 5 each)", flush=True)
+    X, fns = cs.lane_words("blockfp", A)
+    if not torch.equal(fns["wavefront"](X), fns["flat"](X)):
+        sys.exit("tree_ab: B5b differs from B2 at (8192, 32, 64)")
+    ms = {k: [cs._event_ms(lambda: fns[k](X), 5)[0] for _ in range(2)]
+          for k in ("wavefront", "flat")}
+    print(f"ab B5b at {tuple(X.shape)}: {ms['wavefront'][0]:.3f}, "
+          f"{ms['wavefront'][1]:.3f} ms; B2 {ms['flat'][0]:.3f}, "
+          f"{ms['flat'][1]:.3f} (median of 5 each)", flush=True)
+    kw = dict(iters=cs.ROT_ITERS_FULL, hub=True)
+    for B, L in cs.ROT_FULL:
+        R = cs.rotator_rows(B, L, rng, dev)
+        got = cg.fused_call(R[0], R[1], **kw)
+        if not all(map(torch.equal, got, cg.fused_reference(R[0], R[1], **kw))):
+            sys.exit(f"tree_ab: B6c differs from its plain version at {(B, L)}")
+        ms = [cs._event_ms(lambda: cg.fused_call(R[0], R[1], **kw), 5)[0]
+              for _ in range(2)]
+        print(f"ab B6c at ({B}, {L}): {ms[0]:.4f}, {ms[1]:.4f} ms (median of "
+              f"5 each)", flush=True)
     return 0
 
 
