@@ -54,7 +54,7 @@ from repro_torch.core.qrd import snr_db as port_snr_db  # noqa: E402
 from repro_torch.core.qrd import (qr_blockfp_panel, qr_blockfp_pallas,  # noqa: E402
                                   qr_cordic_complex_pallas,
                                   qr_cordic_pallas)
-from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import _build, _launch, ops  # noqa: E402
 from repro_torch.kernels import cordic_givens as cg  # noqa: E402
 from repro_torch.kernels import qrd_blocked as qb  # noqa: E402
 from repro_torch.qrd import QRDEngine, RLSState, SOLVE_TOLERANCES  # noqa: E402
@@ -2650,6 +2650,86 @@ def fused_layout_phase(device, grid=False):
               f"{kept[0]}x{kept[1]}): " + ", ".join(cells), flush=True)
 
 
+def _queued_ms(launch, repeats=5):
+    """Median ms of ``repeats`` calls of ``launch`` (a ctypes entry point
+    that returns its CUDA error) queued behind a sleep of the card, each
+    between its own events, so that no host work is inside a window."""
+    torch.cuda._sleep(REPLAY_SLEEP_CYCLES)
+    events, errs = [], []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        errs.append(launch())
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    for err in errs:
+        _launch.check_launch("rotator", err)
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def rotator_kernel_phase(device, rounds=2):
+    """B6a and B6b kernel only at the row API's full shapes, HUB, iters
+    `ROT_ITERS_FULL`: each launched through its ctypes entry point on
+    arguments built before the window (`cg._vectoring_argv` and
+    `cg._rotation_argv`) and queued behind a sleep of the card
+    (`_queued_ms`).  B6a on column 0 of the rows into column 0 of an
+    output, as `givens_rotate_rows_fixed` runs it, and into contiguous
+    (B,) outputs; B6b on the fixed path's ``x[:, 1:]`` views into the
+    output's (a base one word past a 16-byte boundary), on the
+    contiguous (B, L) rows, and on a contiguous (B, L - 1) copy (a row
+    stride that is not a multiple of 4 words).  ``rounds`` rounds, median
+    of 5 each, every reading bit-equal to the plain version.  Returns
+    {(B, L): {case: [ms of each round]}}."""
+    lib = _launch.lib("rotator")
+    rng = np.random.default_rng(SEED + 16)
+    kw = dict(iters=ROT_ITERS_FULL, hub=True)
+    args = cg._rotator_args(ROT_ITERS_FULL, True)
+    result = {}
+    for B, L in ROT_FULL:
+        X = rotator_rows(B, L, rng, device)
+        x, y = X[0], X[1]
+        O = torch.empty_like(X)
+        flip = torch.empty(B, dtype=torch.int32, device=device)
+        sig = torch.empty_like(flip)
+        want_v = cg.vectoring_reference(x[:, 0], y[:, 0], **kw)
+        cases = {}
+        for label, out in (("B6a", (O[0][:, 0], O[1][:, 0])),
+                           ("B6a, contiguous outputs",
+                            (torch.empty_like(flip), torch.empty_like(flip)))):
+            cases[label] = (
+                lib.vectoring_launch,
+                cg._vectoring_argv(x[:, 0], y[:, 0], *out, flip, sig, args),
+                (*out, flip, sig), want_v)
+        c = (x[:, 1:].contiguous(), y[:, 1:].contiguous())
+        for label, (xs, ys), out in (
+                ("B6b x[:, 1:]", (x[:, 1:], y[:, 1:]),
+                 (O[0][:, 1:], O[1][:, 1:])),
+                ("B6b rows", (x, y), (torch.empty_like(x), torch.empty_like(y))),
+                (f"B6b contiguous (B, {L - 1})", c,
+                 (torch.empty_like(c[0]), torch.empty_like(c[1])))):
+            cases[label] = (lib.rotation_launch,
+                            cg._rotation_argv(xs, ys, want_v[2], want_v[3],
+                                              *out, args),
+                            out, cg.rotation_reference(xs, ys, want_v[2],
+                                                       want_v[3], **kw))
+        readings = {name: [] for name in cases}
+        for _ in range(rounds):
+            for name, (fn, argv, got, want) in cases.items():
+                for t in got:
+                    t.fill_(0)
+                readings[name].append(_queued_ms(lambda: fn(*argv)))
+                compare(f"{name} kernel only at {(B, L)}", got, want)
+        result[B, L] = readings
+        print(f"rotator kernel only at (B, L) = ({B}, {L}), HUB iters "
+              f"{ROT_ITERS_FULL}, ms ({rounds} rounds, median of 5 each, "
+              f"behind a sleep of the card): " + "; ".join(
+                  f"{name} " + "/".join(f"{t:.4f}" for t in ms)
+                  for name, ms in readings.items()), flush=True)
+    return result
+
+
 def cplx_snr_db(A, Q, R):
     """`snr_db` with |.|^2, for complex factors."""
     num = torch.sum(A.abs() ** 2, dim=(-2, -1))
@@ -2807,12 +2887,15 @@ def _rot_shape(name, B, L):
     return {"vectoring": [B], "rotation": [B, L - 1], "fused": [B, L]}[name]
 
 
-def rotator_entries(rot):
+def rotator_entries(rot, kernel_only):
     """The kernels line's entries of B6a, B6b and B6c from
     `rotator_full_phase`'s result (times at rows of 8, with those at rows
-    of 128 beside them); prints the row API's rates."""
+    of 128 beside them) and, for B6a and B6b, `rotator_kernel_phase`'s
+    (``kernel_only``); prints the row API's rates."""
     entries = []
     (B8, L8), (B128, L128) = ROT_FULL
+    # the kernel-only cases that read each kernel as the fixed path runs it
+    case = {"vectoring": "B6a", "rotation": "B6b x[:, 1:]"}
     for name, (where, function, tag) in ROT_KERNELS.items():
         e8 = rot["shapes"][B8, L8][name]
         e128 = rot["shapes"][B128, L128][name]
@@ -2843,13 +2926,24 @@ def rotator_entries(rot):
             "l128_shape": _rot_shape(name, B128, L128),
             "config": f"hub iters={ROT_ITERS_FULL}",
         })
+        if name in case:
+            entries[-1].update(
+                kernel_only_ms=kernel_only[B8, L8][case[name]],
+                l128_kernel_only_ms=kernel_only[B128, L128][case[name]],
+                kernel_only_ms_is="two rounds, median of 5 each, launched "
+                                  "through the ctypes entry point")
+    print_row_api(rot)
+    return entries
+
+
+def print_row_api(rot):
+    """The row API's times and rates from `rotator_full_phase`'s result."""
     for api in ("givens_rotate_rows_fixed", "givens_rotate_rows_fused"):
         print(f"{api}: " + ", ".join(
             f"(B, L) = {shape}: {e[api]['ms']:.4f} ms, "
             f"{e[api]['rotations_per_s']:.4e} rotations/s, bound "
             f"{e[api]['bound_ms']:.4f} ms" for shape, e in rot["shapes"].items()),
             flush=True)
-    return entries
 
 
 def main():
@@ -2937,6 +3031,7 @@ def run(device, block_grid=False):
     rotator_parity_phase(device)
     rot = rotator_full_phase(device)
     fused_layout_phase(device, block_grid)
+    rot_kernel = rotator_kernel_phase(device)
     baselines_phase(device)
     quickstart_phase()
 
@@ -3165,7 +3260,7 @@ def run(device, block_grid=False):
                 device_panel_launches=t["launches"],
                 device_panel_shape=t["shape"], device_panel_tile=t["panel"])
     kernels += lane_entries(lanes, lane_launches, timing, big)
-    kernels += rotator_entries(rot)
+    kernels += rotator_entries(rot, rot_kernel)
     stages = {
         "qr_packed": {"path": steps_stages(givens_schedule(M, N_COLS), M,
                                            M + N_COLS),

@@ -64,7 +64,8 @@ SIGNATURES = {
     # the rotator: (x, y, xo, yo, four row strides, ...)
     "vectoring_launch": ([C_PTR] * 4 + [C_LL] * 4 + [C_PTR] * 2 + [C_INT] * 4
                          + [C_PTR]),
-    "rotation_launch": ([C_PTR] * 4 + [C_LL] * 4 + [C_PTR] * 2 + [C_INT] * 6
+    # (..., flip, sig, B, L, head, threads a row, vec, iters, hub, comp)
+    "rotation_launch": ([C_PTR] * 4 + [C_LL] * 4 + [C_PTR] * 2 + [C_INT] * 8
                         + [C_PTR]),
     # (..., B, L, threads a row, columns a thread, vec, iters, hub, comp)
     "fused_launch": [C_PTR] * 4 + [C_LL] * 4 + [C_INT] * 8 + [C_PTR],

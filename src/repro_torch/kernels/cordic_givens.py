@@ -66,9 +66,11 @@ VECTORING_LAUNCHES = 0
 ROTATION_LAUNCHES = 0
 FUSED_LAUNCHES = 0
 
-#: Threads a block of the rotator kernels (``kThreads`` of
-#: ``csrc/rotator.cu``).
-_THREADS = 256
+#: Threads a row the rotation kernel is compiled for (``rotation_launch``),
+#: each turning `FUSED_CHAINS` columns as independent chains and taking any
+#: row width in tiles; `rotation_call` picks by the fused kernel's rule
+#: (`_fused_layout`).
+ROTATION_THREADS = (1, 2, 4, 8, 16, 32)
 
 #: Columns a thread of the fused kernel turns as independent chains, and
 #: the (threads a row, columns a thread) layouts it is compiled for
@@ -326,18 +328,19 @@ def vectoring_call(x, y, *, iters: int, hub: bool, out=None):
     if B == 0:
         return xo, yo, flip, sig
     err = _launch.lib("rotator").vectoring_launch(
-        x.data_ptr(), y.data_ptr(), xo.data_ptr(), yo.data_ptr(),
-        *(t.stride(0) for t in (x, y, xo, yo)), flip.data_ptr(),
-        sig.data_ptr(), B, *args, _launch.stream(x))
+        *_vectoring_argv(x, y, xo, yo, flip, sig, args))
     _launch.check_launch("rotator", err)
     VECTORING_LAUNCHES += 1
     return xo, yo, flip, sig
 
 
-def _threads_x(L: int) -> int:
-    """Threads along a row of the rotation kernel: the power of two at or
-    above L, at most `_THREADS`."""
-    return min(1 << max(L - 1, 0).bit_length(), _THREADS)
+def _vectoring_argv(x, y, xo, yo, flip, sig, args):
+    """The arguments of ``vectoring_launch`` for B6a on the (B,) CUDA
+    operands; ``args`` are `_rotator_args`."""
+    ops = (x, y, xo, yo)
+    return (*(t.data_ptr() for t in ops), *(t.stride(0) for t in ops),
+            flip.data_ptr(), sig.data_ptr(), x.shape[0], *args,
+            _launch.stream(x))
 
 
 def rotation_call(x, y, flip, sig, *, iters: int, hub: bool, out=None):
@@ -359,8 +362,13 @@ def rotation_call(x, y, flip, sig, *, iters: int, hub: bool, out=None):
     -------
     (xr, yr) : the (B, L) gain-compensated rotated rows (``out`` when
     given).  An empty operand (B = 0 or L = 0) launches nothing.
+
+    The kernel turns each row on `_fused_layout` threads, each replaying
+    the row's control word on its columns as independent chains; it reads
+    whole 16-byte groups where the operands' bases share their offset from
+    a 16-byte boundary and the row strides allow (`_rotation_head`), as
+    for the ``x[:, 1:]`` views of `givens_rotate_rows_fixed`.
     """
-    global ROTATION_LAUNCHES
     args = _rotator_args(iters, hub)
     if _launch.check_operand("rotation_call", x, y, ndim=2,
                              dtype=torch.int32):
@@ -369,6 +377,40 @@ def rotation_call(x, y, flip, sig, *, iters: int, hub: bool, out=None):
         return _outputs("rotation_call", x, out,
                         rotation_reference(x, y, flip, sig, iters=iters,
                                            hub=hub))
+    return _rotation_launch(x, y, flip, sig, args, out=out)
+
+
+def _rotation_head(ops):
+    """The head of B6b's 16-byte path on the (B, L) operands ``ops``: the
+    words h that every base lies past a 16-byte boundary, where that is one
+    h and each row stride is a multiple of 4 words (any stride for one
+    row); else None (single words)."""
+    heads = {t.data_ptr() % 16 // 4 for t in ops}
+    if len(heads) == 1 and all(t.shape[0] == 1 or t.stride(0) % 4 == 0
+                               for t in ops):
+        return heads.pop()
+    return None
+
+
+def _rotation_argv(x, y, flip, sig, xo, yo, args, threads=None):
+    """The arguments of ``rotation_launch`` for B6b on the (B, L) CUDA
+    operands at ``threads`` a row, by default those of `_fused_layout` on
+    the row's words from its 16-byte groups' start; ``args`` are
+    `_rotator_args`."""
+    ops = (x, y, xo, yo)
+    head = _rotation_head(ops)
+    B, L = x.shape
+    T = threads or _fused_layout(L + (head or 0))[0]
+    return (*(t.data_ptr() for t in ops), *(t.stride(0) for t in ops),
+            flip.data_ptr(), sig.data_ptr(), B, L, head or 0, T,
+            int(head is not None), *args, _launch.stream(x))
+
+
+def _rotation_launch(x, y, flip, sig, args, threads=None, out=None):
+    """B6b on (B, L) CUDA row pairs at ``threads`` a row, one of
+    `ROTATION_THREADS` (by default the wrapper's): the rotated rows, in
+    ``out`` when given."""
+    global ROTATION_LAUNCHES
     B, L = x.shape
     if (_launch.check_operand("rotation_call", flip, sig, ndim=1,
                               dtype=torch.int32)
@@ -376,17 +418,17 @@ def rotation_call(x, y, flip, sig, *, iters: int, hub: bool, out=None):
             or not (flip.is_contiguous() and sig.is_contiguous())):
         raise ValueError(f"rotation_call: flip and sig must be contiguous "
                          f"({B},) int32 tensors on {x.device}")
-    xo, yo = _outputs("rotation_call", x, out)
-    threads_x = _threads_x(L)
-    if -(-L // threads_x) > 65535:
+    if threads is not None and threads not in ROTATION_THREADS:
+        raise ValueError(f"rotation_call: no layout of {threads} threads a "
+                         f"row (compiled: {ROTATION_THREADS})")
+    if L > 2 ** 31 - 1 - 3 - 32 * FUSED_CHAINS:
         raise ValueError(f"rotation_call: rows of {L} elements exceed the "
-                         f"kernel's grid ({65535 * threads_x} at most)")
+                         f"kernel's int32 column index")
+    xo, yo = _outputs("rotation_call", x, out)
     if B == 0 or L == 0:
         return xo, yo
     err = _launch.lib("rotator").rotation_launch(
-        x.data_ptr(), y.data_ptr(), xo.data_ptr(), yo.data_ptr(),
-        *(t.stride(0) for t in (x, y, xo, yo)), flip.data_ptr(),
-        sig.data_ptr(), B, L, threads_x, *args, _launch.stream(x))
+        *_rotation_argv(x, y, flip, sig, xo, yo, args, threads))
     _launch.check_launch("rotator", err)
     ROTATION_LAUNCHES += 1
     return xo, yo

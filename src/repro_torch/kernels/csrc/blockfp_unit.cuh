@@ -1,7 +1,9 @@
 // The int32 block-FP CORDIC Givens step as device functions: one function
 // per function of repro_torch/kernels/cordic_givens.py (the plain version),
 // the tile copy of the block-FP kernels (blockfp.cu), and the K-chain
-// replay of the standalone rotator (rotator.cu).
+// turns of the standalone rotator (rotator.cu): turn_chains on the mask
+// micro-rotation (the fused kernel's), turn_chains_fma on the multiply-add
+// one (the vectoring and rotation kernels').
 //
 // Hazards of C++ that XLA's int32 does not have, and what is done here:
 //  * Signed overflow is undefined behaviour in C++, while XLA's int32 adds,
@@ -125,6 +127,61 @@ __device__ __forceinline__ void turn_chains(i32 (&x)[K], i32 (&y)[K],
                                y[q] >> (i - 1), x[q] >> (i - 1), m);
     }
   }
+}
+
+// The operand of micro-rotation i in the multiply-add form below: v >> i,
+// and with HUB its carry bit i - 1 of v added (1 at i = 0), the ys + cy
+// that _microrotation subtracts or adds.  kStep is 0 or 1 for those
+// micro-rotations and 2 for any i >= 2, where ((v >> (i - 1)) + 1) >> 1
+// is (v >> i) + bit i - 1 and cannot overflow (|v >> (i - 1)| < 2^30).
+template <bool kHub, int kStep>
+__device__ __forceinline__ i32 carry_shift(i32 v, int i) {
+  if constexpr (!kHub) {
+    return v >> (kStep < 2 ? kStep : i);
+  } else if constexpr (kStep == 0) {
+    return wrap_add(v, 1);
+  } else if constexpr (kStep == 1) {
+    return (v >> 1) + (v & 1);
+  } else {
+    return ((v >> (i - 1)) + 1) >> 1;
+  }
+}
+
+// microrotation() as two wrapping multiply-adds, which issue as IMAD on
+// the FMA pipe beside the shifts on the integer ALU pipe: x - d ry and
+// y + d rx are x + (m | 1) ry and y + (~m | 1) rx, where the mask m is all
+// ones where d_pos (m | 1 = -1 = -d) and ry, rx are carry_shift of y and x.
+__device__ __forceinline__ void microrotation_fma(i32& x, i32& y, i32 ry,
+                                                  i32 rx, i32 m) {
+  x = wrap_add(x, wrap_mul(m | 1, ry));
+  y = wrap_add(y, wrap_mul(~m | 1, rx));
+}
+
+// Micro-rotation i (kStep as carry_shift's) of K independent chains; chain
+// q turns in the direction of the mask dir(i, q, y[q]), which sees its y
+// before the micro-rotation.
+template <bool kHub, int kStep, int K, class Dir>
+__device__ __forceinline__ void fma_step(i32 (&x)[K], i32 (&y)[K], int i,
+                                         const Dir& dir) {
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    const i32 m = dir(i, q, y[q]);
+    microrotation_fma(x[q], y[q], carry_shift<kHub, kStep>(y[q], i),
+                      carry_shift<kHub, kStep>(x[q], i), m);
+  }
+}
+
+// turn_chains in the multiply-add form, each chain with a direction of its
+// own: dir(i, q, y[q]) gives chain q's mask for micro-rotation i, so a
+// known control word gives -((sigma >> i) & 1) to every chain, and a chain
+// that vectors its own pair gives y[q] >> 31.  Micro-rotations 0 and 1
+// are peeled, so the loop over i >= 2 has no branch.
+template <bool kHub, int K, class Dir>
+__device__ __forceinline__ void turn_chains_fma(i32 (&x)[K], i32 (&y)[K],
+                                                int iters, const Dir& dir) {
+  if (iters > 0) fma_step<kHub, 0>(x, y, 0, dir);
+  if (iters > 1) fma_step<kHub, 1>(x, y, 1, dir);
+  for (int i = 2; i < iters; ++i) fma_step<kHub, 2>(x, y, i, dir);
 }
 
 // The lead pair's vectoring in place: flip on x < 0, then iters

@@ -816,10 +816,100 @@ def _rotator_launches():
     return (cg.VECTORING_LAUNCHES, cg.ROTATION_LAUNCHES, cg.FUSED_LAUNCHES)
 
 
-@pytest.mark.parametrize("hub,iters", [(True, 24), (False, 30), (True, 8)])
+#: (hub, iters) of the rotator's bit-equality test: its first three
+#: cases, then every other depth of `ROT_ITERS` and 1 and 2, which reach
+#: the multiply-add micro-rotation's first two steps alone, both ways.
+ROTATOR_CASES = [(True, 24), (False, 30), (True, 8)] + [
+    (hub, iters) for iters in (1, 2) + chip_smoke.ROT_ITERS
+    for hub in (False, True) if (hub, iters) not in
+    ((True, 24), (False, 30), (True, 8))]
+
+
+def _counted(counter, call, launches):
+    """``call()``, holding that it added ``launches`` to ``cg.<counter>``."""
+    before = getattr(cg, counter)
+    out = call()
+    torch.cuda.synchronize()
+    assert getattr(cg, counter) == before + launches
+    return out
+
+
+def _rotation_views(X, sentinel):
+    """The (B, L = W - 1) rotation operands of the (2, B, W) rows X, each
+    with outputs of its own layout in a buffer filled with ``sentinel``:
+    {name: ((x, y), (xo, yo), buffer, the buffer's words outside the
+    outputs)}.  Contiguous rows; the ``x[:, 1:]`` views of the rows, as
+    `ops.givens_rotate_rows_fixed` passes them (a base one word past a
+    16-byte boundary); views of an odd row stride."""
+    _, B, W = X.shape
+    L = W - 1
+    S = L + 1 if L % 2 == 0 else L + 2
+    C = X[..., 1:].contiguous()
+    V = torch.zeros((2, B, S), dtype=torch.int32, device=X.device)
+    V[..., :L] = C
+    views = {}
+    for name, src, shape, cols in (("rows", C, (2, B, L), slice(0, L)),
+                                   ("x[:, 1:]", X[..., 1:], (2, B, W),
+                                    slice(1, W)),
+                                   ("odd stride", V[..., :L], (2, B, S),
+                                    slice(0, L))):
+        buf = torch.full(shape, sentinel, dtype=torch.int32, device=X.device)
+        outside = torch.ones(shape, dtype=torch.bool, device=X.device)
+        outside[..., cols] = False
+        views[name] = ((src[0], src[1]), (buf[0][..., cols], buf[1][..., cols]),
+                       buf, outside)
+    return views
+
+
+def _check_rotator_layouts(device, hub, iters, rng):
+    """B6a on column 0 of the rows (strided, into column 0 of an output)
+    and on contiguous lead pairs, and B6b through its wrapper and at every
+    count of `cg.ROTATION_THREADS` threads a row on `_rotation_views`, rows
+    of `ROT_WIDTHS` less 1 words, each bit-equal to its plain version; B6b
+    writes no word outside its outputs.  One launch a call, none for an
+    empty operand."""
+    kw = dict(iters=iters, hub=hub)
+    args = cg._rotator_args(iters, hub)
+    for B, W in itertools.product(chip_smoke.ROT_BATCHES,
+                                  chip_smoke.ROT_WIDTHS):
+        for edge in (False, True):
+            X = chip_smoke.rotator_rows(B, W, rng, device, edge)
+            want_v = cg.vectoring_reference(X[0][:, 0], X[1][:, 0], **kw)
+            lead = X[:, :, 0].contiguous()
+            O = torch.zeros_like(X)
+            for what, (x, y), out in (
+                    ("column 0", (X[0][:, 0], X[1][:, 0]),
+                     (O[0][:, 0], O[1][:, 0])),
+                    ("contiguous", (lead[0], lead[1]), None)):
+                got = _counted("VECTORING_LAUNCHES", lambda: cg.vectoring_call(
+                    x, y, out=out, **kw), 1)
+                chip_smoke.compare(f"vectoring B={B} W={W} {what} "
+                                   f"edge={edge}", got, want_v)
+            assert torch.count_nonzero(O[..., 1:]) == 0
+            flip, sig = want_v[2], want_v[3]
+            want = cg.rotation_reference(X[0][:, 1:], X[1][:, 1:], flip, sig,
+                                         **kw)
+            for view, ((x, y), out, buf, outside) in _rotation_views(
+                    X, -12345).items():
+                for threads in (None,) + cg.ROTATION_THREADS:
+                    buf.fill_(-12345)
+                    call = (lambda: cg.rotation_call(x, y, flip, sig, out=out,
+                                                     **kw)) if threads is None \
+                        else (lambda: cg._rotation_launch(x, y, flip, sig, args,
+                                                          threads, out))
+                    _counted("ROTATION_LAUNCHES", call, int(W > 1))
+                    what = (f"rotation B={B} W={W} {view} {threads} threads "
+                            f"edge={edge}")
+                    chip_smoke.compare(what, out, want)
+                    assert bool((buf[outside] == -12345).all()), what
+
+
+@pytest.mark.parametrize("hub,iters", ROTATOR_CASES)
 def test_rotator_kernels_bit_equal_to_plain_versions(cuda, hub, iters):
     """B6a, B6b and B6c against their plain versions (and the fixed row API
-    against the fused one), random and edge words, ragged shapes."""
+    against the fused one), random and edge words, ragged shapes; then B6a
+    on strided and contiguous lead pairs and B6b at each layout it is
+    compiled for (`_check_rotator_layouts`)."""
     rng = np.random.default_rng(iters)
     before = _rotator_launches()
     for B, W in ((1, 2), (7, 5), (33, 130), (257, 9), (4099, 3)):
@@ -831,6 +921,11 @@ def test_rotator_kernels_bit_equal_to_plain_versions(cuda, hub, iters):
     # per case: vectoring 2 (alone and in the fixed API), rotation 2, fused 1
     assert tuple(b + n for b, n in zip(before, (20, 20, 10))) == \
         _rotator_launches()
+    _check_rotator_layouts(cuda, hub, iters, rng)
+    with pytest.raises(ValueError, match="layout"):
+        cg._rotation_launch(X[0], X[1], *cg.vectoring_call(
+            X[0][:, 0], X[1][:, 0], iters=iters, hub=hub)[2:],
+            cg._rotator_args(iters, hub), 3)
 
 
 def _fused_views(X, device):

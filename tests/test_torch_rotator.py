@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import cordic_givens as jcg
 from repro.kernels import ops as jops
 from repro.kernels import ref
 
@@ -224,3 +225,73 @@ def test_empty_operands():
                                     torch.zeros(B, dtype=torch.int32))
         assert rx.shape == (B, W - 1)
 
+
+
+def fma_microrotation(x, y, i, d_pos, hub):
+    """numpy int32 emulation of the vectoring and rotation kernels'
+    micro-rotation as ``csrc/blockfp_unit.cuh`` writes it (`carry_shift`,
+    `microrotation_fma`): x + (m | 1) r(y) and y + (~m | 1) r(x), m all ones
+    where ``d_pos``, in uint32 arithmetic that wraps as nvcc's does; r(v)
+    is v >> i, with HUB v + 1 at i = 0, (v >> 1) + (v & 1) at i = 1 and
+    ((v >> (i - 1)) + 1) >> 1 beyond."""
+    def carry_shift(v):
+        if not hub:
+            return v >> i
+        if i == 0:
+            return v + np.int32(1)
+        if i == 1:
+            return (v >> 1) + (v & 1)
+        return ((v >> (i - 1)) + 1) >> 1
+
+    m = np.where(d_pos, np.int32(-1), np.int32(0))
+    u32 = np.uint32
+    xn = x.view(u32) + (m | 1).view(u32) * carry_shift(y).view(u32)
+    yn = y.view(u32) + (~m | 1).view(u32) * carry_shift(x).view(u32)
+    return xn.view(np.int32), yn.view(np.int32)
+
+
+@pytest.mark.parametrize("i", range(30))
+@pytest.mark.parametrize("hub", [False, True], ids=["conv", "hub"])
+def test_fma_microrotation_bit_equal_to_jax_microrotation(hub, i):
+    """The multiply-add micro-rotation of B6a and B6b, emulated as the CUDA
+    source writes it, against the JAX package's `_microrotation`, run
+    eagerly: every pair of edge words and random words (significands and
+    full-range int32), in both directions, at micro-rotation i.  This holds
+    the form of the arithmetic, not the device code: the kernels themselves
+    are held to their plain versions by the ``gpu`` test
+    `test_rotator_kernels_bit_equal_to_plain_versions`."""
+    rng = np.random.default_rng(1000 + i + 100 * hub)
+    words = np.concatenate([
+        EDGE, np.rint(rng.uniform(-1.9, 1.9, 12) * 2.0 ** 24),
+        rng.integers(-2 ** 31, 2 ** 31, 12)]).astype(np.int32)
+    x, y, d = (a.ravel() for a in np.meshgrid(words, words, [False, True],
+                                              indexing="ij"))
+    want = jcg._microrotation(jnp.asarray(x), jnp.asarray(y), i,
+                              jnp.asarray(d), hub)
+    got = fma_microrotation(x, y, i, d, hub)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+
+
+def test_rotation_head_picks_the_16_byte_path():
+    """B6b reads whole 16-byte groups where every operand's base lies the
+    same number of words past a 16-byte boundary and every row stride is a
+    multiple of 4 words (the fixed API's ``x[:, 1:]`` views: one word), else
+    single words; its layout covers the row's words from the group start
+    at a compiled count of threads a row."""
+    X = torch.zeros((2, 5, 8), dtype=torch.int32)
+    assert X.data_ptr() % 16 == 0
+    rows = (X[0], X[1], X[0], X[1])
+    views = tuple(t[:, 1:] for t in rows)
+    assert tcg._rotation_head(rows) == 0
+    assert tcg._rotation_head(views) == 1
+    assert tcg._rotation_head(tuple(t[:, 3:] for t in rows)) == 3
+    assert tcg._rotation_head(views[:2] + rows[2:]) is None   # heads differ
+    Y = torch.zeros((2, 5, 7), dtype=torch.int32)             # stride 7
+    assert tcg._rotation_head((Y[0], Y[1], Y[0], Y[1])) is None
+    assert tcg._rotation_head((Y[0, :1],) * 4) == 0             # one row
+    for L in range(1, 600):
+        for h in range(4):
+            assert tcg._fused_layout(L + h)[0] in tcg.ROTATION_THREADS
+    assert tcg._fused_layout(7 + 1) == (1, 8)     # rows of 8: one thread
+    assert tcg._fused_layout(127 + 1) == (16, 8)  # rows of 128: 16 threads

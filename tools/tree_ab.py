@@ -14,10 +14,13 @@ only (`chip_smoke.panel_replay_phase`, median of 10; with
 ``--block-grid`` B4b also at 1, 2, 4 and 8 threads a column, for a tree
 that has `qrd_blocked._panel_apply_blockfp_launch`), then B5a beside B1
 on the same words at (8192, 32, 64) and, tiles in device memory, at
-(132, 128, 256), B5b beside B2 at (8192, 32, 64), and B6c through its
-wrapper at the row API's full shapes (two medians of 5 each).  Run it on
-two trees in turns (parent, change, change, parent) in one call to compare
-them.
+(132, 128, 256), B5b beside B2 at (8192, 32, 64), B6c through its
+wrapper at the row API's full shapes (two medians of 5 each), and B6a and
+B6b kernel only there (`chip_smoke.rotator_kernel_phase`, through their
+ctypes entry points, whose arguments the tree's `cordic_givens` builds),
+and the row API's rotations per second (`chip_smoke.rotator_full_phase`,
+wrappers included).  Run it on two trees in turns (parent, change,
+change, parent) in one call to compare them.
 """
 import os
 import sys
@@ -90,6 +93,8 @@ def main():
               for _ in range(2)]
         print(f"ab B6c at ({B}, {L}): {ms[0]:.4f}, {ms[1]:.4f} ms (median of "
               f"5 each)", flush=True)
+    cs.rotator_kernel_phase(dev)
+    cs.print_row_api(cs.rotator_full_phase(dev))
     return 0
 
 
